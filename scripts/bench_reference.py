@@ -1,11 +1,10 @@
-"""Measured CPU-reference baselines for BASELINE.json configs 1-5.
+"""Measured CPU-reference baselines for the bench.py configs 1-5.
 
-Executes the VERDICT-r3 ask #3 / BASELINE.md "Measurement plan": run the
-reference (RomanJuranek/waldboost at /root/reference, imported under
+Runs the reference (RomanJuranek/waldboost, imported under
 tests/refshims — numba is absent from this image, but every reference
 kernel is internally *vectorized NumPy* under njit/stencil, so the shimmed
 run is honest NumPy-speed; see tests/refshims/numba/__init__.py) on the
-same workloads bench.py measures on TPU, and record per config:
+same workloads bench.py measures on the device, and record per config:
 
   - megapixels/second (same uniform-noise uint8 frames as bench.py)
   - windows scored per second (Model.n_loc counter)
@@ -18,9 +17,7 @@ Usage (CPU; the models are built by the same helpers bench.py uses):
     python scripts/bench_reference.py            # all configs
     BENCH_REF_CONFIGS=vga_full python scripts/bench_reference.py
 
-Results land in BASELINE.md's measured-reference table; bench.py's
-vs_baseline ratios remain against the driver's 1000 MP/s north star, and
-BASELINE.md derives the vs-reference ratios from this script's output.
+Results are printed as one JSON line per config.
 """
 
 import json
@@ -138,7 +135,7 @@ def bench_vga_single_scale(ref, frames=6):
 
 
 def bench_vga_full_pyramid(ref, frames=6):
-    """Config 2 (the TPU headline): trained 64-stage flagship, full
+    """Config 2 (the headline): trained 64-stage flagship, full
     shrink=2/n_per_oct=8/smooth=1 pyramid + NMS."""
     import waldboost_tpu as wb
 
@@ -187,7 +184,7 @@ def bench_fpga_4k(ref, frames=2, smooth=0):
 def bench_train_loop(ref, n_stages=6):
     """Config 4: reference training loop, stages/min (same synthetic
     stream and learner config as bench.py's config 4; stage 0-1 excluded
-    as loop warmup exactly like the TPU measurement)."""
+    as loop warmup exactly like the device measurement)."""
     from waldboost_tpu.utils import fake_data_generator
 
     def gen():

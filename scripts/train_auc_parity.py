@@ -1,9 +1,9 @@
-"""Training-QUALITY parity: PR/AUC of a TPU-hist-trained detector vs a
+"""Training-QUALITY parity: PR/AUC of a device-hist-trained detector vs a
 sklearn-backend-trained one vs a detector trained by the REFERENCE'S OWN
-code (VERDICT r2 "Next round" #3).
+code.
 
 Detection parity is proven exact (tests/test_reference_golden.py); this
-measures the other axis — whether the TPU-native histogram tree splitter
+measures the other axis — whether the device histogram tree splitter
 (waldboost_tpu/ops/fit.py; bin-edge thresholds, PARITY.md §3) trains
 detectors as GOOD as the reference's sklearn CART
 (/root/reference/waldboost/training.py:34-50).  All three trainers see the
@@ -17,8 +17,7 @@ Run detached (trains 3 x N_STAGES stages):
 
   nohup python scripts/train_auc_parity.py > /tmp/auc_parity.log 2>&1 &
 
-Prints one JSON line per trainer plus a final summary JSON; record the
-numbers in BASELINE.md.
+Prints one JSON line per trainer plus a final summary JSON.
 """
 
 import json

@@ -1,6 +1,6 @@
 """Independent numpy/scipy oracle implementing the CPU reference's semantics.
 
-Used as golden data for parity tests of the TPU implementation.  This mirrors
+Used as golden data for parity tests of the device implementation.  This mirrors
 the *documented behaviour* of /root/reference/waldboost (scipy convolve1d
 reflect-boundary gradients, skimage order-1/no-AA resize convention, numba
 stencil zero borders, dtype-exact pooling), implemented independently so the

@@ -1,22 +1,27 @@
-"""Cascade-specialized (static) Pallas kernel: parity with the XLA evaluator.
+"""The GPU cascade kernel (ops/cascade_kernel.py) in interpret mode: parity
+with the XLA lockstep evaluator and the reference oracle.
 
-The static kernel bakes the frozen cascade into the compiled program
-(ops/cascade_static.py); rejection is monotone per window, so its tile-level
-early exit must reproduce the lockstep evaluator's survivor set, scores, and
-n_weak counter exactly — including for batched canvases (batch grid dim).
+Rejection is monotone per window, so the kernel's tile-level early exit must
+reproduce the lockstep evaluator's survivor set, scores (bitwise: the same
+f32 leaf sums in the same stage order) and n_weak counter exactly —
+including batched canvases, canvases that are not tile multiples, stage caps,
+bf16 canvases and cascades deeper than any fixed table size.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
+import oracle
+from test_cascade import random_stage
 from waldboost_tpu.channels import _normalize_opts
 from waldboost_tpu.model import (_channel_canvas_fast, _packed_plan_cached,
                                  Model)
+from waldboost_tpu.ops import cascade as cop
 from waldboost_tpu.ops.cascade import cascade_response_grid
-from waldboost_tpu.ops.cascade_static import (cascade_response_grid_static,
-                                              static_cascade_from_model)
+from waldboost_tpu.ops.cascade_kernel import (cascade_dense, cascade_grid,
+                                              cascade_masked,
+                                              kernel_supported)
 
 
 def _make_model(seed=0, n_stages=20, shape=(8, 8, 4)):
@@ -47,61 +52,49 @@ def setup():
     return model, cvs, valid, (m, n)
 
 
+def _assert_same(ref, got):
+    """(hs, alive, n_weak) of the lockstep evaluator vs the kernel: same
+    survivors, bitwise-equal scores everywhere, equal counters."""
+    hs0, al0, nw0 = (np.asarray(x) for x in ref)
+    hs1, al1, nw1 = (np.asarray(x) for x in got)
+    np.testing.assert_array_equal(al0, al1)
+    np.testing.assert_array_equal(hs0.view(np.int32), hs1.view(np.int32))
+    assert int(nw0) == int(nw1)
+
+
 def test_static_matches_xla_single(setup):
     model, cvs, valid, window = setup
     casc, meta = model._get_cascade()
-    sc = static_cascade_from_model(model)
-    hs0, al0, nw0 = cascade_response_grid(cvs[0], casc, window, meta,
-                                          init_alive=valid)
-    hs1, al1, nw1 = cascade_response_grid_static(cvs[0], sc, valid, window,
-                                                 tile=(64, 128),
-                                                 interpret=True)
-    al0, al1 = np.asarray(al0), np.asarray(al1)
-    assert np.array_equal(al0, al1)
-    assert np.array_equal(np.asarray(hs0)[al0], np.asarray(hs1)[al1])
-    assert int(nw0) == int(nw1)
+    ref = cascade_response_grid(cvs[0], casc, window, meta, init_alive=valid)
+    got = cascade_dense(cvs[:1], casc, meta, valid, window)
+    _assert_same(ref, [x[0] for x in got])
 
 
 def test_static_matches_xla_batched(setup):
     model, cvs, valid, window = setup
     casc, meta = model._get_cascade()
-    sc = static_cascade_from_model(model)
-    hs1, al1, nw1 = cascade_response_grid_static(cvs, sc, valid, window,
-                                                 tile=(64, 128),
-                                                 interpret=True)
+    hs1, al1, nw1 = cascade_dense(cvs, casc, meta, valid, window)
     assert hs1.shape[0] == cvs.shape[0]
     for b in range(cvs.shape[0]):
-        hs0, al0, nw0 = cascade_response_grid(cvs[b], casc, window, meta,
-                                              init_alive=valid)
-        al0 = np.asarray(al0)
-        assert np.array_equal(al0, np.asarray(al1[b]))
-        assert np.array_equal(np.asarray(hs0)[al0], np.asarray(hs1[b])[al0])
-        assert int(nw0) == int(nw1[b])
+        ref = cascade_response_grid(cvs[b], casc, window, meta,
+                                    init_alive=valid)
+        _assert_same(ref, (hs1[b], al1[b], nw1[b]))
 
 
 def test_static_stage_cap_matches_slice(setup):
     model, cvs, valid, window = setup
-    from waldboost_tpu.ops.cascade import slice_cascade
     casc, meta = model._get_cascade()
-    sc = static_cascade_from_model(model)
-    k1 = 7
-    pre = slice_cascade(casc, 0, k1)
-    hs0, al0, nw0 = cascade_response_grid(cvs[1], pre, window, meta,
-                                          init_alive=valid)
-    hs1, al1, nw1 = cascade_response_grid_static(cvs[1], sc, valid, window,
-                                                 tile=(64, 128),
-                                                 interpret=True,
-                                                 n_stages_cap=k1)
-    al0 = np.asarray(al0)
-    assert np.array_equal(al0, np.asarray(al1))
-    assert np.array_equal(np.asarray(hs0)[al0], np.asarray(hs1)[al0])
-    # the padded slice has inert stages beyond k1; n_weak counts only live
-    # evaluations of active stages — identical by construction
-    assert int(nw0) == int(nw1)
+    pre = cop.slice_cascade(casc, 0, 7)
+    ref = cascade_response_grid(cvs[1], pre, window, meta, init_alive=valid)
+    got = cascade_dense(cvs[1:2], pre, meta, valid, window)
+    # a 7-stage slice is not a multiple of the kernel's stage group: the
+    # padded tail stages must be inert (no score, no n_weak)
+    _assert_same(ref, [x[0] for x in got])
 
 
 def test_model_detect_uses_static_backend(setup):
-    """Model.detect through the serving dispatch equals the XLA backend."""
+    """Model.detect through the kernel serving dispatch equals the XLA
+    backend."""
     from waldboost_tpu import model as M
     model, _, _, _ = setup
     rng = np.random.RandomState(3)
@@ -110,13 +103,11 @@ def test_model_detect_uses_static_backend(setup):
     try:
         M.set_cascade_backend("xla")
         bx = model.detect(img)
-        M.set_cascade_backend("static")
+        M.set_cascade_backend("triton")
         bs = model.detect(img)
     finally:
         M._CASCADE_BACKEND = old
     assert len(bx) == len(bs)
-    # same survivor set (order may differ only if extraction differs; both
-    # use np.nonzero row-major or top-k — compare as sorted sets)
     a = np.concatenate([bx.get(), bx.get_field("scores")[:, None]], axis=1)
     b = np.concatenate([bs.get(), bs.get_field("scores")[:, None]], axis=1)
     a = a[np.lexsort(a.T)]
@@ -125,28 +116,20 @@ def test_model_detect_uses_static_backend(setup):
 
 
 def test_masked_kernel_matches_static(setup):
-    """cascade_masked_grid_static == where(alive, hs, -inf) uncropped, with
-    exact in-kernel n_weak and survivor counts."""
-    from waldboost_tpu.ops.cascade_static import (cascade_grid,
-                                                  cascade_masked_grid_static)
+    """cascade_masked == where(alive, hs, -inf) over the tile-padded grid,
+    with exact in-kernel n_weak and survivor counts."""
     model, cvs, valid, window = setup
-    sc = static_cascade_from_model(model)
-    hs, al, nw = cascade_response_grid_static(cvs, sc, valid, window,
-                                              tile=(64, 128), interpret=True)
-    masked, nw2, count = cascade_masked_grid_static(cvs, sc, valid, window,
-                                                    tile=(64, 128),
-                                                    interpret=True)
+    casc, meta = model._get_cascade()
+    hs, al, nw = cascade_dense(cvs, casc, meta, valid, window)
+    masked, nw2, count = cascade_masked(cvs, casc, meta, valid, window)
     U, V = cvs.shape[-2], cvs.shape[-1]
     m, n = window
     gu, gv = U - m, V - n
-    TU, TV, gi, gj, _, _ = cascade_grid((U, V), window, tile=(64, 128))
+    TU, TV, gi, gj = cascade_grid((U, V), window)
     assert masked.shape == (cvs.shape[0], gi * TU, gj * TV)
     al, hs = np.asarray(al), np.asarray(hs)
     mk = np.asarray(masked)
-    # content: hs where alive else -inf
-    assert np.array_equal(mk[:, :gu, :gv],
-                          np.where(al, hs, -np.inf))
-    # padding: all dead
+    assert np.array_equal(mk[:, :gu, :gv], np.where(al, hs, -np.inf))
     assert np.all(np.isneginf(mk[:, gu:, :])) and \
         np.all(np.isneginf(mk[:, :, gv:]))
     assert np.array_equal(np.asarray(nw), np.asarray(nw2))
@@ -154,42 +137,43 @@ def test_masked_kernel_matches_static(setup):
                           al.reshape(al.shape[0], -1).sum(1))
 
 
-def test_masked_kernel_serving_variants(setup):
-    """The serving configurations (-inf latch encoding without n_weak,
-    eager/lazy preshift, min-uses thresholds) emit the same masked map and
-    survivor counts as the reference masked form."""
-    from waldboost_tpu.ops.cascade_static import cascade_masked_grid_static
+@pytest.mark.parametrize("tile", [(16, 64), (8, 32), (32, 128)])
+def test_masked_kernel_serving_variants(setup, tile):
+    """Serving configurations — no n_weak counter, other tile shapes — emit
+    the same survivor scores and counts as the default masked form."""
     model, cvs, valid, window = setup
-    sc = static_cascade_from_model(model)
-    ref, _, count0 = cascade_masked_grid_static(cvs, sc, valid, window,
-                                                tile=(64, 128),
-                                                interpret=True)
-    ref = np.asarray(ref)
-    for ps, lazy, mu, me, at in [
-            (False, False, 2, False, False), (True, False, 2, False, False),
-            (True, True, 2, False, False), (True, True, 4, False, False),
-            (True, True, 1, False, False),  # serving default
-            (True, False, 1000, False, False),
-            (False, False, 2, True, False), (True, False, 2, True, False),
-            (True, True, 2, True, False),
-            # deferred AND-tree rejection encoding (WB_CASC_ENC=andtree)
-            (False, False, 2, False, True), (True, True, 1, False, True)]:
-        mk, _, count = cascade_masked_grid_static(
-            cvs, sc, valid, window, tile=(64, 128), interpret=True,
-            with_n_weak=False, preshift=ps, preshift_lazy=lazy,
-            preshift_min_uses=mu, block=4, margin_enc=me, and_tree=at)
-        assert np.array_equal(np.asarray(mk), ref), (ps, lazy, mu, me, at)
-        assert np.array_equal(np.asarray(count), np.asarray(count0)), \
-            (ps, lazy, mu, me, at)
+    casc, meta = model._get_cascade()
+    ref, nw0, count0 = cascade_masked(cvs, casc, meta, valid, window)
+    mk, nw, count = cascade_masked(cvs, casc, meta, valid, window,
+                                   with_n_weak=False, tile=tile)
+    U, V = cvs.shape[-2:]
+    gu, gv = U - window[0], V - window[1]
+    np.testing.assert_array_equal(np.asarray(mk)[:, :gu, :gv],
+                                  np.asarray(ref)[:, :gu, :gv])
+    np.testing.assert_array_equal(np.asarray(count), np.asarray(count0))
+    assert not np.asarray(nw).any() and np.asarray(nw0).all()
+
+
+def test_masked_kernel_bf16_canvas(setup):
+    """A bf16 canvas (fast serving mode) is compared in f32, exactly as the
+    lockstep evaluator compares the same bf16 values."""
+    model, cvs, valid, window = setup
+    casc, meta = model._get_cascade()
+    cb = cvs.astype(jnp.bfloat16)
+    mk, nw, count = cascade_masked(cb, casc, meta, valid, window)
+    gu, gv = cvs.shape[-2] - window[0], cvs.shape[-1] - window[1]
+    for b in range(cb.shape[0]):
+        hs, al, nw0 = cascade_response_grid(cb[b], casc, window, meta,
+                                            init_alive=valid)
+        al = np.asarray(al)
+        np.testing.assert_array_equal(np.asarray(mk[b])[:gu, :gv],
+                                      np.where(al, np.asarray(hs), -np.inf))
+        assert int(nw[b]) == int(nw0) and int(count[b]) == int(al.sum())
 
 
 def test_masked_kernel_deep_cascade_auto_latch():
-    """Cascades deeper than 128 stages silently switch the masked kernel
-    to the single-carry -inf latch (the AND-tree's per-block compare lists
-    blow Mosaic's scoped-VMEM stack at depth — scripts/exp_r12_deep.py);
-    outputs must still equal the XLA lockstep evaluator exactly."""
-    from waldboost_tpu.ops.cascade_static import cascade_masked_grid_static
-
+    """A 140-stage cascade: node tables are runtime arrays, so depth has no
+    kernel limit; outputs equal the XLA lockstep evaluator exactly."""
     model = _make_model(seed=3, n_stages=140)
     m, n, _ = model.shape
     shrink, n_per_oct, smooth, cf = _normalize_opts(model.channel_opts)
@@ -200,18 +184,117 @@ def test_masked_kernel_deep_cascade_auto_latch():
     img = rng.randint(0, 256, (48, 64)).astype(np.uint8)
     cvs = _channel_canvas_fast(jnp.asarray(img), shrink, smooth, cf,
                                packed).astype(jnp.float32)
-
     casc, meta = model._get_cascade()
-    hs, alive, nw = cascade_response_grid(cvs, casc, (m, n), meta,
-                                          init_alive=valid)
-    sc = static_cascade_from_model(model)
-    masked, _, count = cascade_masked_grid_static(
-        cvs, sc, valid, (m, n), interpret=True, with_n_weak=False,
-        preshift=True, preshift_lazy=True, preshift_min_uses=1,
-        block=16, and_tree=True)  # auto-switches to the latch internally
-    gu, gv = hs.shape
-    mk = np.asarray(masked)[:gu, :gv]
-    np.testing.assert_array_equal(np.isfinite(mk), np.asarray(alive))
-    np.testing.assert_array_equal(mk[np.asarray(alive)],
-                                  np.asarray(hs)[np.asarray(alive)])
-    assert int(count) == int(np.asarray(alive).sum())
+    ref = cascade_response_grid(cvs, casc, (m, n), meta, init_alive=valid)
+    got = cascade_dense(cvs[None], casc, meta, valid, (m, n))
+    _assert_same(ref, [x[0] for x in got])
+
+
+_THETAS = {
+    "none": lambda rng, T: [-np.inf] * T,
+    "mixed": lambda rng, T: [(-np.inf if t % 3 else rng.randn() * 0.5 - 0.5)
+                             for t in range(T)],
+    "reject_all": lambda rng, T: [1e9] + [-np.inf] * (T - 1),
+}
+
+
+@pytest.mark.parametrize("kind", ["stump", "depth2"])
+@pytest.mark.parametrize("window", [(8, 8), (5, 11)])
+@pytest.mark.parametrize("thetas", sorted(_THETAS))
+@pytest.mark.parametrize("hw", [(30, 26), (45, 83)])
+def test_kernel_matches_oracle(kind, window, thetas, hw):
+    """Kernel vs the reference's survivor-compaction oracle and the lockstep
+    evaluator, over tree depth, window shape, rejection pattern and canvas
+    sizes that are not tile multiples (padded tiles and masked reads)."""
+    rng = np.random.RandomState(hash((kind, window, thetas, hw)) % 2 ** 31)
+    C = 3
+    X = rng.randn(hw[0], hw[1], C).astype("f")
+    T = 10
+    stages = [random_stage(rng, window, C, kind) for _ in range(T)]
+    th = _THETAS[thetas](rng, T)
+    casc, meta = cop.cascade_from_stages(stages, th, n_stages=16)
+    assert kernel_supported(meta)
+    chw = jnp.transpose(jnp.asarray(X), (2, 0, 1))
+    gu, gv = hw[0] - window[0], hw[1] - window[1]
+    valid = jnp.ones((gu, gv), bool)
+
+    hs, al, nw = (x[0] for x in cascade_dense(chw[None], casc, meta, valid,
+                                              window))
+    _assert_same(cop.cascade_response_grid(chw, casc, window, meta), (hs, al,
+                                                                      nw))
+    rs, cs, h_ref, nw_ref = oracle.predict_on_image(stages, th, X, window)
+    al = np.asarray(al)
+    assert set(zip(*np.nonzero(al))) == set(zip(rs.tolist(), cs.tolist()))
+    np.testing.assert_allclose(np.asarray(hs)[rs, cs], h_ref, rtol=1e-5,
+                               atol=1e-5)
+    assert int(nw) == nw_ref
+    mk, nw2, count = (x[0] for x in cascade_masked(chw[None], casc, meta,
+                                                   valid, window))
+    assert int(count) == len(rs) and int(nw2) == nw_ref
+    assert int(np.isfinite(np.asarray(mk)).sum()) == len(rs)
+
+
+def test_kernel_deep_trees_take_lockstep():
+    """Trees deeper than the complete-tree canonicalisation have no kernel
+    route; the kernel entry points fall back to the lockstep evaluator with
+    the same outputs."""
+    rng = np.random.RandomState(4)
+    window, C = (6, 6), 2
+    depth = cop.MAX_COMPLETE_DEPTH + 1
+    nn = 2 * depth + 1  # a chain: every left child is a leaf
+
+    def chain_stage():
+        left = np.full(nn, -1)
+        right = np.full(nn, -1)
+        for d in range(depth):
+            left[2 * d], right[2 * d] = 2 * d + 1, 2 * d + 2
+        feat = np.stack([rng.randint(6, size=nn), rng.randint(6, size=nn),
+                         rng.randint(C, size=nn)], 1)
+        return dict(feature=feat, threshold=rng.randn(nn).astype("f"),
+                    left=left, right=right,
+                    prediction=rng.randn(nn).astype("f"))
+
+    stages = [chain_stage() for _ in range(4)]
+    casc, meta = cop.cascade_from_stages(stages, [-np.inf, 0.0, -np.inf, 0.5])
+    assert not kernel_supported(meta)
+    X = jnp.asarray(rng.randn(C, 20, 24).astype("f"))
+    valid = jnp.ones((14, 18), bool)
+    ref = cop.cascade_response_grid(X, casc, window, meta, init_alive=valid)
+    _assert_same(ref, [x[0] for x in cascade_dense(X[None], casc, meta, valid,
+                                                   window)])
+    mk, _, count = cascade_masked(X[None], casc, meta, valid, window)
+    assert int(count[0]) == int(np.asarray(ref[1]).sum())
+
+
+def test_model_cascade_is_kernel_routable():
+    """The shipped flagship model (64 depth-2 trees) takes the kernel."""
+    import waldboost_tpu as wb
+    model = wb.load("models/flagship_synth_64.pb")
+    assert isinstance(model, Model)
+    _, meta = model._get_cascade()
+    assert kernel_supported(meta) and meta.depth == 2
+
+
+@pytest.mark.gpu
+def test_gpu_kernel_matches_lockstep_at_vga(gpu):
+    """Compiled on the card, at the flagship's full VGA canvas: identical
+    survivors, bitwise scores and equal n_weak vs the lockstep evaluator."""
+    import jax
+
+    import waldboost_tpu as wb
+    from waldboost_tpu.golden import golden_frames
+    from waldboost_tpu.polyphase import _channel_canvas_batch
+
+    model = wb.load("models/flagship_synth_64.pb")
+    m, n, _ = model.shape
+    shrink, npo, smooth, cf = _normalize_opts(model.channel_opts)
+    packed = _packed_plan_cached(480, 640, shrink, npo, (m, n), halo=cf.halo)
+    valid = jnp.asarray(packed.valid_mask((m, n)))
+    casc, meta = model._get_cascade()
+    cvs = jax.jit(lambda ims: _channel_canvas_batch(
+        ims, shrink, npo, smooth, cf, packed))(jnp.asarray(golden_frames()[0]))
+    got = cascade_dense(cvs, casc, meta, valid, (m, n))
+    for b in range(cvs.shape[0]):
+        ref = cascade_response_grid(cvs[b], casc, (m, n), meta,
+                                    init_alive=valid)
+        _assert_same(ref, [x[b] for x in got])

@@ -1,10 +1,9 @@
 """Opt-in fast serving mode (WB_SERVING_MODE=fast): deviation bounds.
 
-Fast mode trades the bit-exactness contract for throughput: the channel
-kernel skips the dd-projection exactness tax and computes/emits bf16; the
-cascade kernel ingests the bf16 canvas (stage chain stays f32 — Mosaic
-legalizes no packed 16-bit compares, scripts/probe_mosaic_bf16*.py).
-These tests pin: exact mode unchanged, fast-mode deviation bounded.
+Fast mode trades the bit-exactness contract for throughput: float content
+skips the double-float exactness chains and the cascade kernel reads a
+bf16 canvas (compared in f32).  These tests pin: exact mode unchanged,
+fast-mode deviation bounded.
 """
 
 import os
@@ -58,17 +57,15 @@ def test_fast_mode_bounded_deviation(model):
         sf, _ = _boxes(of, b)
         total += max(len(se), 1)
         flips += len(se ^ sf)
-    # deviation exists but is a small fraction of boxes (TPU-measured
-    # flip rate ~1% on scenes; the CPU interpret bound here is loose)
+    # deviation exists but is a small fraction of boxes
     assert flips <= 0.25 * total, (flips, total)
 
 
 def test_fast_mode_float_images_bounded_deviation(model):
-    """Float frames in fast mode ride the fused plane + kernel pipeline
-    (f32 planes, plain lerp — polyphase._combine_block_plain) instead of
-    the dd-exact XLA chain — boxes must stay close to the exact float
-    path's.  WB_FAST_FLOAT=bf16 additionally quantizes the content
-    (looser bound; TPU-measured 20.7% scene flips, BASELINE.md)."""
+    """Float frames in fast mode take plain f32 chains (f32 planes, plain
+    lerp — polyphase._combine_block_plain) instead of the dd-exact chain —
+    boxes must stay close to the exact float path's.  WB_FAST_FLOAT=bf16
+    additionally quantizes the content (looser bound)."""
     rng = np.random.RandomState(2)
     base = rng.randint(0, 256, (4, 96, 128)).astype(np.float32)
     imgs = jnp.asarray(base + rng.rand(4, 96, 128).astype(np.float32))

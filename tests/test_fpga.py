@@ -142,36 +142,9 @@ def test_fpga_poly_canvas_matches_canvas_path():
         np.testing.assert_array_equal(np.asarray(poly), np.asarray(fast))
 
 
-@pytest.mark.parametrize("name", ["grad_hist_4_u1", "grad_mag_u1"])
-@pytest.mark.parametrize("hw", [(96, 128), (240, 320)])
-def test_fpga_poly_kernel_bitwise(name, hw):
-    """The fused Pallas FPGA channel kernel (interpret mode on CPU) is
-    bitwise identical to the XLA polyphase chain over a real packed plan
-    (gaps, shelf bands, ring masks)."""
-    import jax.numpy as jnp
-
-    from waldboost_tpu import model as M
-    from waldboost_tpu.channels import _normalize_opts
-
-    opts = dict(shrink=2, n_per_oct=4, smooth=0, channels=name)
-    shrink, n_per_oct, sm, cf = _normalize_opts(opts)
-    packed = M._packed_plan_cached(*hw, shrink, n_per_oct, (12, 12),
-                                   halo=cf.halo)
-    img = jnp.asarray(np.random.RandomState(3)
-                      .randint(0, 256, hw).astype(np.uint8))
-    try:
-        M.set_channel_backend("xla")
-        ref = np.asarray(M._channel_canvas_poly(img, sm, cf, packed))
-        M.set_channel_backend("pallas")
-        ker = np.asarray(M._channel_canvas_poly(img, sm, cf, packed))
-    finally:
-        M.set_channel_backend("auto")
-    np.testing.assert_array_equal(ker, ref)
-
-
-def test_fpga_poly_kernel_smooth_falls_back():
-    """smooth == 1 routes FPGA channels to the XLA chain
-    (poly_kernel_smooth=False) and stays exact vs the canvas path."""
+def _poly_vs_image_canvas(chan, smooth, hw, seed):
+    """(polyphase chain, image-space canvas chain) channel canvases of one
+    random uint8 frame over a real packed plan (gaps, shelf bands, rings)."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -179,27 +152,51 @@ def test_fpga_poly_kernel_smooth_falls_back():
     from waldboost_tpu import model as M
     from waldboost_tpu.channels import _normalize_opts
 
-    hw = (96, 128)
-    opts = dict(shrink=2, n_per_oct=4, smooth=1, channels="grad_hist_4_u1")
+    opts = dict(shrink=2, n_per_oct=4, smooth=smooth, channels=chan)
     shrink, n_per_oct, sm, cf = _normalize_opts(opts)
     packed = M._packed_plan_cached(*hw, shrink, n_per_oct, (12, 12),
                                    halo=cf.halo)
-    img = jnp.asarray(np.random.RandomState(5)
+    img = jnp.asarray(np.random.RandomState(seed)
                       .randint(0, 256, hw).astype(np.uint8))
-    try:
-        M.set_channel_backend("pallas")
-        poly = np.asarray(M._channel_canvas_poly(img, sm, cf, packed))
-    finally:
-        M.set_channel_backend("auto")
-    cf_old = dataclasses.replace(cf, canvas_fn_poly=None, poly_kernel=None)
-    old = np.asarray(M._channel_canvas_fast(img, shrink, sm, cf_old, packed))
-    np.testing.assert_array_equal(poly, old)
+    poly = np.asarray(M._channel_canvas_poly(img, sm, cf, packed))
+    assert poly.shape[0] == cf.n_channels
+    if "+" in chan:
+        # a composite is the channel-axis concat of its parts' chains
+        parts = [_poly_vs_image_canvas(c, smooth, hw, seed)[0]
+                 for c in chan.split("+")]
+        return poly, np.concatenate(parts, axis=0)
+    cf_img = dataclasses.replace(cf, canvas_fn_poly=None)
+    ref = np.asarray(M._channel_canvas_fast(img, shrink, sm, cf_img, packed))
+    return poly, ref
 
 
-def test_fpga_fused_serving_boxes_bitwise():
-    """End-to-end fused serving (fused planes + FPGA channel kernel +
-    static cascade kernel + extraction) returns the same boxes as the XLA
-    channel path."""
+@pytest.mark.parametrize("name", ["grad_hist_4_u1", "grad_mag_u1"])
+@pytest.mark.parametrize("hw", [(96, 128), (240, 320)])
+def test_fpga_poly_chain_bitwise(name, hw):
+    """The FPGA polyphase channel chain (the serving canvas) is bitwise
+    identical to the image-space canvas chain over a real packed plan."""
+    poly, ref = _poly_vs_image_canvas(name, 0, hw, seed=3)
+    np.testing.assert_array_equal(poly, ref)
+
+
+@pytest.mark.parametrize("chan,smooth", [
+    ("grad_hist_4_u1", 1),
+    ("grad_mag_u1", 1),
+    ("grad_hist_4_u1+grad_mag_u1", 0),
+    ("grad_hist_4_u1+grad_mag_u1", 1),
+])
+def test_fpga_poly_chain_smooth_and_composite(chan, smooth):
+    """smooth==1 (3x3/16 + uint8 truncation + interior mask) through the
+    polyphase chain equals the image-space canvas chain, and "+"-composite
+    channel functions (the grad_hist+grad_mag C=5 pipeline) equal the
+    concat of their parts."""
+    poly, ref = _poly_vs_image_canvas(chan, smooth, (96, 128), seed=5)
+    np.testing.assert_array_equal(poly, ref)
+
+
+def test_fpga_serving_boxes_match_xla_backend():
+    """End-to-end kernel serving (polyphase canvas + cascade kernel +
+    extraction) returns the same boxes as the XLA lockstep backend."""
     import jax.numpy as jnp
 
     from __graft_entry__ import _flagship_model
@@ -212,53 +209,19 @@ def test_fpga_fused_serving_boxes_bitwise():
     imgs = jnp.asarray(np.random.RandomState(0)
                        .randint(0, 256, (2, h, w)).astype(np.uint8))
     try:
-        M.set_channel_backend("xla")
-        M.set_cascade_backend("static")
+        M.set_cascade_backend("xla")
         fn, _ = make_batched_detector_boxes(model, (h, w), k=128,
                                             nms_iou=None, with_n_weak=False)
         ref = [np.asarray(x) for x in fn(imgs)]
-        M.set_channel_backend("pallas")
+        M.set_cascade_backend("triton")
         fn2, _ = make_batched_detector_boxes(model, (h, w), k=128,
                                              nms_iou=None, with_n_weak=False)
         got = [np.asarray(x) for x in fn2(imgs)]
     finally:
-        M.set_channel_backend("auto")
-        M.set_cascade_backend("auto")
+        M.set_cascade_backend("triton")
     assert ref[3].sum() > 0  # some survivors, or the test is vacuous
-    for a, b in zip(ref, got):
+    for a, b in zip(ref[:4], got[:4]):
         np.testing.assert_array_equal(b, a)
-
-
-@pytest.mark.parametrize("chan,smooth", [
-    ("grad_hist_4_u1", 1),
-    ("grad_mag_u1", 1),
-    ("grad_hist_4_u1+grad_mag_u1", 0),
-    ("grad_hist_4_u1+grad_mag_u1", 1),
-])
-def test_fpga_kernel_smooth_and_composite(chan, smooth):
-    """The fused FPGA channel kernel handles smooth==1 (in-kernel 3x3/16 +
-    uint8 truncation + interior mask; haloed ring-mask DMA) and
-    "+"-composite kinds (BASELINE config 5's grad_hist+grad_mag C=5
-    pipeline) bitwise-identically to the XLA polyphase chain."""
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from waldboost_tpu import model as M
-    from waldboost_tpu.channels import _normalize_opts
-
-    opts = dict(shrink=2, n_per_oct=4, smooth=smooth, channels=chan)
-    shrink, n_per_oct, sm, cf = _normalize_opts(opts)
-    packed = M._packed_plan_cached(96, 128, shrink, n_per_oct, (12, 12),
-                                   halo=cf.halo)
-    rng = np.random.RandomState(3)
-    img = jnp.asarray(rng.randint(0, 256, (96, 128)).astype(np.uint8))
-    planes = M._poly_planes(img, cf, packed)
-    kern = np.asarray(M._poly_channels(planes, sm, cf, packed))
-    cf_nok = dataclasses.replace(cf, poly_kernel=None)
-    xla = np.asarray(M._poly_channels(planes, sm, cf_nok, packed))
-    assert kern.shape[0] == cf.n_channels
-    np.testing.assert_array_equal(kern, xla)
 
 
 def test_composed_channels_concat_semantics():
@@ -279,9 +242,9 @@ def test_composed_channels_concat_semantics():
     from waldboost_tpu.channels import resolve_channel_function as rcf
     again = rcf(cf.name)
     assert again is cf
-    # float-family composition resolves too (XLA paths only)
+    # float-family composition resolves too
     f = rcf("grad_hist+grad_mag")
-    assert f.n_channels == 5 and f.poly_kernel is None
+    assert f.n_channels == 5 and f.canvas_fn_poly is None
 
 
 def test_fpga_train_sharded_mesh():

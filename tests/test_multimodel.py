@@ -128,7 +128,7 @@ def test_make_multi_detector_boxes_heterogeneous(monkeypatch):
     imgs = jnp.asarray(rng.randint(0, 256, (2, 96, 128)).astype(np.uint8))
 
     try:
-        M.set_cascade_backend("static")
+        M.set_cascade_backend("triton")
         singles = []
         for mm in models:
             fn, _ = D.make_batched_detector_boxes(mm, (96, 128), k=64,
@@ -144,7 +144,7 @@ def test_make_multi_detector_boxes_heterogeneous(monkeypatch):
         rects, scores, valid, label, count, _nw = \
             [np.asarray(x) for x in fn(imgs)]
     finally:
-        M.set_cascade_backend("auto")
+        M.set_cascade_backend("triton")
 
     # per-model box SETS equal the single-model batched path (the shared
     # min-window canvas is a different layout than each model's own plan,
@@ -175,7 +175,7 @@ def test_make_multi_detector_boxes_batched(monkeypatch):
     imgs = jnp.asarray(rng.randint(0, 256, (2, 96, 128)).astype(np.uint8))
 
     try:
-        M.set_cascade_backend("static")
+        M.set_cascade_backend("triton")
         # reference results from the single-model batched path
         singles = []
         for mm in models:
@@ -207,7 +207,7 @@ def test_make_multi_detector_boxes_batched(monkeypatch):
         rects, scores, valid, label, count, _nw = \
             [np.asarray(x) for x in fn(imgs)]
     finally:
-        M.set_cascade_backend("auto")
+        M.set_cascade_backend("triton")
 
     # the fused program traced the canvas exactly once for two models
     assert traces["n"] == 1
@@ -244,7 +244,7 @@ def test_make_multi_detector_boxes_mesh_matches_unmeshed():
     imgs = jnp.asarray(rng.randint(0, 256, (4, 96, 128)).astype(np.uint8))
 
     try:
-        M.set_cascade_backend("static")
+        M.set_cascade_backend("triton")
         fn0, _ = D.make_multi_detector_boxes(models, (96, 128), k=32,
                                              nms_iou=0.5,
                                              with_n_weak=False)
@@ -254,7 +254,7 @@ def test_make_multi_detector_boxes_mesh_matches_unmeshed():
                                              with_n_weak=False)
         meshed = [np.asarray(x) for x in fnm(imgs)]
     finally:
-        M.set_cascade_backend("auto")
+        M.set_cascade_backend("triton")
 
     for a, b in zip(plain, meshed):
         np.testing.assert_array_equal(a, b)

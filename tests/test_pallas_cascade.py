@@ -1,4 +1,4 @@
-"""Parity of the Pallas fused cascade kernel (interpret mode) vs the XLA
+"""Parity of the Pallas cascade kernel (interpret mode on the CPU) vs the XLA
 masked-lockstep evaluator — which itself is oracle-verified in
 test_cascade.py, giving a transitive chain to the reference semantics."""
 
@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import pytest
 
 from waldboost_tpu.ops import cascade as cop
-from waldboost_tpu.ops.cascade_pallas import cascade_response_grid_pallas
+from waldboost_tpu.ops.cascade_kernel import cascade_dense
 
 from test_cascade import random_stage
 
@@ -28,8 +28,8 @@ def test_pallas_matches_xla(kind, with_theta):
 
     h1, a1, w1 = cop.cascade_response_grid(chw, casc, window, meta,
                                            init_alive=valid)
-    h2, a2, w2 = cascade_response_grid_pallas(chw, casc, valid, window, meta,
-                                              tile=(32, 128), interpret=True)
+    h2, a2, w2 = (x[0] for x in cascade_dense(chw[None], casc, meta, valid,
+                                              window, tile=(32, 128)))
     a1, a2 = np.asarray(a1), np.asarray(a2)
     np.testing.assert_array_equal(a1, a2)
     np.testing.assert_allclose(np.asarray(h1)[a1], np.asarray(h2)[a2],
@@ -50,7 +50,7 @@ def test_pallas_tile_early_exit_counts():
     casc, meta = cop.cascade_from_stages(stages, thetas)
     chw = jnp.transpose(jnp.asarray(X), (2, 0, 1))
     valid = jnp.ones((34, 134), bool)
-    h, a, w = cascade_response_grid_pallas(chw, casc, valid, window, meta,
-                                           tile=(16, 128), interpret=True)
+    h, a, w = (x[0] for x in cascade_dense(chw[None], casc, meta, valid,
+                                           window, tile=(16, 128)))
     assert not np.asarray(a).any()
     assert int(w) == 34 * 134  # one weak eval per window, then tile exits

@@ -350,9 +350,10 @@ def test_train_sharded_pools_carry_over():
     assert pools["fp"] is not fp0 and pools["tp"] is not tp0  # re-bootstrap
 
 
-def test_fused_kernel_geometry_detector_exact():
-    """The geometry-coupled channel+cascade kernel pair (static backend +
-    pallas channels, zero inter-kernel copies) matches Model.detect."""
+def test_kernel_batched_detector_exact():
+    """The batched detector on the cascade kernel (polyphase canvas chain +
+    kernel) matches Model.detect on the XLA backend: same survivors,
+    bitwise scores."""
     from waldboost_tpu import model as M
     from waldboost_tpu.parallel.detect import make_batched_detector
 
@@ -361,21 +362,20 @@ def test_fused_kernel_geometry_detector_exact():
                                  channels="grad_hist"))
     rng = np.random.RandomState(12)
     images = rng.randint(0, 256, (2, 48, 64)).astype(np.uint8)
-    refs = [model.detect(img) for img in images]
-    old_cb, old_chb = M._CASCADE_BACKEND, M._CHANNEL_BACKEND
+    old_cb = M._CASCADE_BACKEND
     try:
-        M.set_cascade_backend("static")
-        M.set_channel_backend("pallas")  # interpret mode on CPU
+        M.set_cascade_backend("xla")
+        refs = [model.detect(img) for img in images]
+        M.set_cascade_backend("triton")
         fn, _ = make_batched_detector(model, (48, 64))
         hs, alive, nw = fn(jnp.asarray(images))
     finally:
-        M._CASCADE_BACKEND, M._CHANNEL_BACKEND = old_cb, old_chb
+        M._CASCADE_BACKEND = old_cb
     for b, ref in enumerate(refs):
         al = np.asarray(alive[b])
         assert al.sum() == len(ref)
         got = np.sort(np.asarray(hs[b])[al])
-        np.testing.assert_allclose(got, np.sort(ref.get_field("scores")),
-                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(got, np.sort(ref.get_field("scores")))
 
 
 def test_tile_sharded_single_image_exact():
@@ -421,36 +421,28 @@ def test_train_step_improves_loss():
     assert losses[2] < losses[0]
 
 
-@pytest.mark.parametrize("fused_planes", [True, False])
-def test_masked_serving_mats_path_matches_detect(monkeypatch, fused_planes):
-    """The one-program serving path with prebuilt selector matrices (mats
-    passed as jit arguments) returns exactly Model.detect's boxes, with the
-    planes built either by the fused shelf kernel (ops.plane_pallas) or the
-    XLA mats path (_poly_mats_cached) — and the intended path is taken."""
+@pytest.mark.parametrize("backend", ["triton", "xla"])
+def test_masked_serving_matches_detect(backend):
+    """The one-program serving path (kernel backend: canvas + masked kernel
+    + extraction in one jit) and the split XLA path both return exactly
+    Model.detect's boxes."""
     from waldboost_tpu import model as M
     from waldboost_tpu.parallel.detect import make_batched_detector_boxes
 
-    monkeypatch.setenv("WB_PLANE_FUSED", "1" if fused_planes else "0")
     model = make_model(n_stages=4, shape=(8, 8, 4),
                        opts=dict(shrink=2, n_per_oct=2, smooth=1,
                                  channels="grad_hist"))
     rng = np.random.RandomState(5)
     images = rng.randint(0, 256, (2, 48, 64)).astype(np.uint8)
     refs = [model.detect(img) for img in images]
-    old_cb, old_chb = M._CASCADE_BACKEND, M._CHANNEL_BACKEND
-    impl = M._poly_fused_impl if fused_planes else M._poly_mats_impl
-    ci0 = impl.cache_info()
+    old_cb = M._CASCADE_BACKEND
     try:
-        M.set_cascade_backend("static")
-        M.set_channel_backend("pallas")  # interpret mode on CPU
+        M.set_cascade_backend(backend)
         fn, _ = make_batched_detector_boxes(model, (48, 64), k=1024,
                                             with_n_weak=False)
         rects, scores, valid, count, _ = fn(jnp.asarray(images))
     finally:
-        M._CASCADE_BACKEND, M._CHANNEL_BACKEND = old_cb, old_chb
-    ci1 = impl.cache_info()
-    # a hit counts too: another test may have already built this geometry
-    assert ci1.hits + ci1.misses > ci0.hits + ci0.misses
+        M._CASCADE_BACKEND = old_cb
     for b, ref in enumerate(refs):
         sel = np.asarray(valid[b])
         assert int(np.asarray(count[b])) == len(ref)

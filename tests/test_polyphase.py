@@ -34,41 +34,23 @@ def test_poly_canvas_exact(hw, smooth):
     assert np.array_equal(poly, old)
 
 
-@pytest.mark.parametrize("merged", ["0", "1"])
 @pytest.mark.parametrize("hw,npo", [((48, 64), 2), ((96, 128), 2),
-                                    # multi-block levels (nblkS=2) + several
-                                    # pieces per shelf: exercises the
-                                    # piece-staged DMA ring's slot cycling
                                     ((160, 256), 4)])
-def test_poly_planes_fused_exact(hw, npo, merged, monkeypatch):
-    """The fused shelf pass-2 kernel (ops.plane_pallas) emits a canvas
-    bitwise identical to the XLA mats path: same one-hot corner dots, same
-    f32 lerp association, gap strips zero-filled.  merged=1 runs the
-    single-launch multi-shelf kernel, merged=0 the chained per-shelf
-    calls — both must be bitwise."""
-    import jax
-
-    monkeypatch.setenv("WB_SHELF_MERGED", merged)
-
-    from waldboost_tpu.ops.channels_pallas import plane_pad_geometry
-
+def test_poly_canvas_batch_matches_single(hw, npo):
+    """The batched serving canvas (polyphase chain vmapped over a batch)
+    equals the single-image polyphase canvas bitwise, image by image."""
     h, w = hw
     opts = dict(shrink=2, n_per_oct=npo, smooth=1, channels="grad_hist")
     shrink, n_per_oct, sm, cf = _normalize_opts(opts)
     packed = M._packed_plan_cached(h, w, shrink, n_per_oct, (8, 8),
                                    halo=cf.halo)
-    halo_m = packed.halo if (cf.boundary == "reflect" and cf.halo > 0) else 0
-    geom = plane_pad_geometry(packed.canvas_h, packed.canvas_w)
     rng = np.random.RandomState(7)
     imgs = jnp.asarray(rng.randint(0, 256, (2, h, w)).astype(np.uint8))
-    mats, spec = M._poly_mats_cached(packed, halo_m, (h, w))
-    ref = jax.vmap(lambda im: M._poly_planes(im, cf, packed, geom=geom,
-                                             mats=mats, spec=spec))(imgs)
-    fmats, fspec = M._poly_fused_cached(packed, halo_m, (h, w))
-    got = M._poly_planes_fused(imgs, fmats, fspec, interpret=True)
-    assert got.dtype == ref.dtype == jnp.bfloat16
-    np.testing.assert_array_equal(np.asarray(ref.astype(jnp.float32)),
-                                  np.asarray(got.astype(jnp.float32)))
+    got = np.asarray(M._channel_canvas_batch(imgs, shrink, n_per_oct, sm, cf,
+                                             packed))
+    for b in range(2):
+        ref = np.asarray(M._channel_canvas_poly(imgs[b], sm, cf, packed))
+        np.testing.assert_array_equal(got[b], ref)
 
 
 def test_reflect_halos_poly_matches_interleaved():
@@ -87,57 +69,3 @@ def test_reflect_halos_poly_matches_interleaved():
     inter[1::2, 0::2] = out[1, 0]
     inter[1::2, 1::2] = out[1, 1]
     assert np.array_equal(inter, ref)
-
-
-@pytest.mark.parametrize("hw,npo", [((96, 128), 2), ((160, 256), 4),
-                                    ((240, 320), 8)])
-def test_poly_fused_plan_invariants(hw, npo):
-    """Host-side invariants of the fused-shelf plan builder
-    (model._poly_fused_impl): shelves tile the canvas rows exactly once,
-    pieces tile each shelf's pitch, every level's block refs resolve to
-    selector blocks of its own octave, and staging windows stay within the
-    octave row pad."""
-    h, w = hw
-    opts = dict(shrink=2, n_per_oct=npo, smooth=1, channels="grad_hist")
-    shrink, n_per_oct, sm, cf = _normalize_opts(opts)
-    packed = M._packed_plan_cached(h, w, shrink, n_per_oct, (8, 8),
-                                   halo=cf.halo)
-    halo_m = packed.halo if (cf.boundary == "reflect" and cf.halo > 0) else 0
-    mats, spec = M._poly_fused_cached(packed, halo_m, (h, w))
-    _pr, _pc, PH, PW = spec["geom"]
-
-    # shelves tile [0, PH) exactly once, in order, 8-aligned
-    rows = sorted((p.ys, p.pitch) for _, _, _, p, _ in spec["shelves"])
-    cur = 0
-    for ys, pitch in rows:
-        assert ys == cur and ys % 8 == 0 and pitch % 8 == 0
-        cur += pitch
-    assert cur == PH
-
-    # flat part order: octave-major then block-major (what
-    # _poly_planes_fused produces); blocks per octave
-    n_parts = []
-    for octv in spec["oct_list"]:
-        n_parts.append(len(spec["groups"][octv]))
-    total_parts = sum(n_parts)
-
-    for _, _, _, plan, used in spec["shelves"]:
-        assert plan.kwpS >= 8 and plan.nblkS >= 1
-        # shelf-local cols selection maps into the flat part range
-        assert all(0 <= f < total_parts for f in used)
-        assert list(used) == sorted(set(used))
-        for lv in plan.levels:
-            # block refs are local positions into `used`
-            assert all(0 <= r < len(used) for r in lv.blks)
-            assert len(lv.blks) == lv.cwpad // 128
-            assert lv.cwpad >= lv.wq and lv.cwpad % 128 == 0
-            # every piece window is 8-aligned and inside the octave rows
-            pitch_cover = np.zeros(plan.pitch, bool)
-            for row_off, rb, r0, k0, kwp in lv.pieces:
-                assert k0 % 8 == 0 and kwp % 8 == 0 and kwp <= plan.kwpS
-                assert 0 <= k0 and k0 + kwp <= lv.oh
-                assert not pitch_cover[r0:r0 + rb].any()
-                pitch_cover[r0:r0 + rb] = True
-            # pieces cover a prefix-contiguous subset of band rows (gap
-            # filler rows may be skipped, but no double coverage)
-            assert pitch_cover.any()

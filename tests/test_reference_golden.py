@@ -40,8 +40,8 @@ def ref():
         sys.path.insert(0, REF_PATH)
     # the reference generates model_pb2 at build time and does not check it
     # in; our proto is wire-compatible (same fields/numbers), so seed it
-    import waldboost_tpu.proto.model_pb2 as pb2
-    sys.modules.setdefault("waldboost.model_pb2", pb2)
+    from waldboost_tpu.proto import codec
+    sys.modules.setdefault("waldboost.model_pb2", codec)
     import waldboost  # noqa: F401  (the reference package)
     return waldboost
 
@@ -91,12 +91,12 @@ def test_reference_channel_pyramid_golden(ref):
     images += [np.atleast_3d(next(gen)["image"])[:, :, 0] for _ in range(2)]
     opts_ref = dict(shrink=2, n_per_oct=4, smooth=1,
                     channels=ref.channels.grad_hist)
-    opts_tpu = dict(shrink=2, n_per_oct=4, smooth=1, channels="grad_hist")
+    opts_ours = dict(shrink=2, n_per_oct=4, smooth=1, channels="grad_hist")
     for img in images:
         ref_levels = list(ref.channels.channel_pyramid(img, opts_ref))
-        tpu_levels = list(wb.channels.channel_pyramid(img, opts_tpu))
-        assert len(ref_levels) == len(tpu_levels)
-        for (rc, rs), (tc, ts) in zip(ref_levels, tpu_levels):
+        our_levels = list(wb.channels.channel_pyramid(img, opts_ours))
+        assert len(ref_levels) == len(our_levels)
+        for (rc, rs), (tc, ts) in zip(ref_levels, our_levels):
             assert rc.shape == tc.shape
             assert rs == pytest.approx(ts, rel=1e-9)
             _assert_channels_bitequal(rc, tc)
@@ -110,11 +110,11 @@ def test_reference_predict_exact(ref, tmp_path):
     rng = np.random.RandomState(3)
     X = (rng.rand(257, 8, 8, 4) * 30).astype(np.float32)
     H_ref, mask_ref = rmodel.predict(X)
-    H_tpu, mask_tpu = model.predict(X)
-    np.testing.assert_array_equal(np.asarray(mask_ref), mask_tpu)
+    H_ours, mask_ours = model.predict(X)
+    np.testing.assert_array_equal(np.asarray(mask_ref), mask_ours)
     fin = np.isfinite(H_ref)
-    np.testing.assert_array_equal(fin, np.isfinite(H_tpu))
-    np.testing.assert_array_equal(H_ref[fin], H_tpu[fin])
+    np.testing.assert_array_equal(fin, np.isfinite(H_ours))
+    np.testing.assert_array_equal(H_ref[fin], H_ours[fin])
 
 
 def test_reference_predict_on_image_exact(ref, tmp_path):
@@ -124,14 +124,14 @@ def test_reference_predict_on_image_exact(ref, tmp_path):
     rng = np.random.RandomState(4)
     chns = (rng.rand(40, 56, 4) * 25).astype(np.float32)
     r_ref, c_ref, h_ref = rmodel.predict_on_image(chns)
-    r_tpu, c_tpu, h_tpu = model.predict_on_image(chns)
+    r_ours, c_ours, h_ours = model.predict_on_image(chns)
     ref_set = np.stack([r_ref, c_ref], 1)
-    tpu_set = np.stack([r_tpu, c_tpu], 1)
+    our_set = np.stack([r_ours, c_ours], 1)
     order_r = np.lexsort(ref_set.T)
-    order_t = np.lexsort(tpu_set.T)
-    np.testing.assert_array_equal(ref_set[order_r], tpu_set[order_t])
+    order_t = np.lexsort(our_set.T)
+    np.testing.assert_array_equal(ref_set[order_r], our_set[order_t])
     np.testing.assert_array_equal(np.asarray(h_ref)[order_r],
-                                  h_tpu[order_t])
+                                  h_ours[order_t])
 
 
 def test_reference_detect_golden(ref, tmp_path):
@@ -153,11 +153,11 @@ def test_reference_detect_golden(ref, tmp_path):
     n_mismatch = 0
     for img in images:
         ref_boxes = rmodel.detect(img)
-        tpu_boxes = model.detect(img)
+        our_boxes = model.detect(img)
         a = np.round(np.concatenate(
             [ref_boxes.get(), ref_boxes.get_field("scores")[:, None]], 1), 3)
         b = np.round(np.concatenate(
-            [tpu_boxes.get(), tpu_boxes.get_field("scores")[:, None]], 1), 3)
+            [our_boxes.get(), our_boxes.get_field("scores")[:, None]], 1), 3)
         sa = set(map(tuple, a))
         sb = set(map(tuple, b))
         n_total += max(len(sa), len(sb), 1)
@@ -168,7 +168,7 @@ def test_reference_detect_golden(ref, tmp_path):
 
 def test_reference_written_pb_loads_bitcompatible(ref, tmp_path):
     """A model file WRITTEN BY THE REFERENCE loads here with identical
-    behavior (wire compatibility in the reference->tpu direction)."""
+    behavior (wire compatibility in the reference->this-package direction)."""
     import waldboost_tpu as wb
 
     model = _tiny_model(seed=9)
@@ -227,12 +227,12 @@ def test_reference_fpga_channels_golden(ref):
     rng = np.random.RandomState(6)
     img = rng.randint(0, 256, (64, 80)).astype(np.uint8)
     ref_gh = ref_fpga.grad_hist_4_u1(img)           # (H, W, 4) uint8
-    tpu_gh = np.asarray(grad_hist_4_u1(img))        # (4, H, W) uint8
-    np.testing.assert_array_equal(ref_gh, np.transpose(tpu_gh, (1, 2, 0)))
+    our_gh = np.asarray(grad_hist_4_u1(img))        # (4, H, W) uint8
+    np.testing.assert_array_equal(ref_gh, np.transpose(our_gh, (1, 2, 0)))
     ref_gm = ref_fpga.grad_mag_u1(img)
-    tpu_gm = np.asarray(grad_mag_u1(img))
+    our_gm = np.asarray(grad_mag_u1(img))
     np.testing.assert_array_equal(np.atleast_3d(ref_gm),
-                                  np.transpose(tpu_gm, (1, 2, 0)))
+                                  np.transpose(our_gm, (1, 2, 0)))
 
 
 def test_reference_detect_trained_model_golden(ref, tmp_path):
@@ -290,20 +290,19 @@ def test_reference_float_image_golden(ref, tmp_path):
     images += [np.atleast_3d(next(gen)["image"])[:, :, 0].astype(np.float32)
                for _ in range(10)]
 
-    # channel pyramid: float path within the MEASURED ULP bound (PARITY.md
-    # round 4 / scripts/exp_r10_float_ulp.py: max 260 ULP / 9.2e-05 abs
-    # over a 40-image 3.5M-value corpus; asserted here with 2x headroom)
+    # channel pyramid: float path within the measured ULP bound (PARITY.md
+    # "Floating-point status")
     from waldboost_tpu.testing import ulp_distance as ulp_dist
 
     opts_ref = dict(shrink=2, n_per_oct=4, smooth=1,
                     channels=ref.channels.grad_hist)
-    opts_tpu = dict(shrink=2, n_per_oct=4, smooth=1, channels="grad_hist")
+    opts_ours = dict(shrink=2, n_per_oct=4, smooth=1, channels="grad_hist")
     max_ulp = 0
     for img in images[:4]:
         ref_levels = list(ref.channels.channel_pyramid(img, opts_ref))
-        tpu_levels = list(wb.channels.channel_pyramid(img, opts_tpu))
-        assert len(ref_levels) == len(tpu_levels)
-        for (rc, rs), (tc, ts) in zip(ref_levels, tpu_levels):
+        our_levels = list(wb.channels.channel_pyramid(img, opts_ours))
+        assert len(ref_levels) == len(our_levels)
+        for (rc, rs), (tc, ts) in zip(ref_levels, our_levels):
             assert rc.shape == tc.shape
             assert rs == pytest.approx(ts, rel=1e-9)
             rc32 = rc.astype(np.float32)

@@ -91,8 +91,8 @@ def test_dtree_proto_roundtrip():
     W0 = np.full(len(X0), 1.0 / len(X0), "f")
     W1 = np.full(len(X1), 1.0 / len(X1), "f")
     tree = tr.DTree.fit(X0, W0, X1, W1, max_depth=2)
-    from waldboost_tpu.proto import model_pb2
-    pb = model_pb2.DTree()
+    from waldboost_tpu.proto import codec
+    pb = codec.DTree()
     tree.as_proto(pb)
     t2 = tr.DTree.from_proto(pb)
     X = np.concatenate([X0[:10], X1[:10]])
@@ -178,10 +178,33 @@ def test_fit_stage_explicit_zero_theta_not_refit():
     assert model.theta[0] == 0.0
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 256, 1000, 4096])
+def test_indicator_histogram_blocks(chunk):
+    """The blocked indicator contraction equals a float64 NumPy histogram
+    within the f32 reorder bound, whatever the block size (padding rows
+    included): the fit's histograms do not depend on the pool's size."""
+    import jax
+    import jax.numpy as jnp
+
+    from waldboost_tpu.ops.fit import indicator_histogram
+
+    rng = np.random.RandomState(chunk)
+    n, feat, nb = 1000, 6, 16
+    X = rng.randn(n, feat).astype(np.float32)
+    wc = rng.rand(3, n).astype(np.float32)
+    edges = np.quantile(X, np.arange(1, nb) / nb, axis=0).astype(np.float32)
+    got = np.asarray(jax.jit(indicator_histogram, static_argnums=3)(
+        jnp.asarray(wc), jnp.asarray(X), jnp.asarray(edges), chunk))
+    ind = (X[:, :, None] <= edges.T[None]).astype(np.float64)
+    ref = np.einsum("cn,nfb->cfb", wc.astype(np.float64), ind)
+    assert got.shape == ref.shape == (3, feat, nb - 1)
+    np.testing.assert_allclose(got, ref, rtol=n * 2.0 ** -24, atol=0)
+
+
 def test_hist_einsum_matches_scatter_path():
-    """The MXU indicator-einsum histogram path (round 4, WB_HIST_EINSUM)
-    must grow the same tree as the segment-sum scatter path on
-    well-separated data (both are f32 on CPU; association order differs,
+    """The indicator-einsum histogram path (f32 at HIGHEST precision)
+    must grow the same tree as the segment-sum scatter path
+    (WB_HIST_EINSUM=0) on well-separated data (association order differs,
     so only exact-tie splits could legitimately diverge)."""
     import os
 

@@ -1,6 +1,6 @@
 """Channel features: channel functions, registry, and the multi-scale pyramid.
 
-TPU-first redesign of /root/reference/waldboost/channels.py:
+Device redesign of the reference's waldboost/channels.py:
 
 * Channel functions are pure JAX functions ``(H, W) image -> (C, H, W)``
   channels (channel-major on device; the public generator yields HWC numpy to
@@ -74,8 +74,7 @@ class CanvasCtx:
     exact_int: bool = False
     #: fast serving mode (WB_SERVING_MODE=fast, resolved at BUILD time by
     #: the caller): float content skips the dd double-float chains for
-    #: plain f32 arithmetic (the XLA-chain mirror of the fused kernel's
-    #: fast branch; deviation priced in BASELINE.md)
+    #: plain f32 arithmetic (a relaxed, not bit-exact contract)
     fast: bool = False
 
 
@@ -110,22 +109,6 @@ class ChannelFunction:
     #: shifted adds and the 2x2 average pool becomes elementwise — no strided
     #: access anywhere, so XLA fuses the whole chain.
     canvas_fn_poly: Optional[Callable[[jax.Array, CanvasCtx], jax.Array]] = None
-    #: fused Pallas version of the full polyphase chain INCLUDING pool,
-    #: smooth, and interior masking: (planes, interior_mask, smooth,
-    #: interpret) -> (C, Hc, Wc).  Bit-identical to canvas_fn_poly + smooth;
-    #: used on TPU where it avoids materializing intermediates in HBM.
-    poly_kernel: Optional[Callable] = None
-    #: mask array fed to poly_kernel: (packed_plan) -> array, or None to pass
-    #: the smooth interior mask (the grad_hist contract).  The FPGA kernels
-    #: take the polyphase stencil ring mask instead.
-    poly_kernel_mask: Optional[Callable] = None
-    #: whether poly_kernel implements the smooth == 1 tail itself; when
-    #: False, smooth configs fall back to the XLA polyphase chain.
-    poly_kernel_smooth: bool = True
-    #: fused-kernel kind name of the FPGA family (ops.channels_pallas.
-    #: fpga_poly_pallas); compositions of such functions fuse into ONE
-    #: kernel launch via the "+"-composite kind.
-    fused_kind: Optional[str] = None
 
     def __call__(self, image: jax.Array) -> jax.Array:
         return self.fn(image)
@@ -158,8 +141,8 @@ def resolve_channel_function(name_or_cf) -> ChannelFunction:
 
     ``"a+b"`` names resolve to :func:`compose_channel_functions` — the
     multi-channel composition facility (e.g.
-    ``"grad_hist_4_u1+grad_mag_u1"``, BASELINE config 5's quantized
-    5-channel pipeline)."""
+    ``"grad_hist_4_u1+grad_mag_u1"``, the quantized 5-channel FPGA
+    pipeline)."""
     if isinstance(name_or_cf, ChannelFunction):
         return name_or_cf
     if name_or_cf not in _REGISTRY:
@@ -187,8 +170,6 @@ def compose_channel_functions(*parts) -> ChannelFunction:
     ``np.concatenate``s the parts (channel_opts takes any callable,
     /root/reference/waldboost/channels.py:116-119); this is that, with the
     canvas/polyphase fast paths composed too, persisted by the "a+b" name.
-    FPGA-family parts (``fused_kind``) keep a single fused kernel launch
-    via the "+"-composite kind of ops.channels_pallas.fpga_poly_pallas.
     """
     cfs = [resolve_channel_function(p) for p in parts]
     assert len(cfs) >= 2
@@ -215,15 +196,6 @@ def compose_channel_functions(*parts) -> ChannelFunction:
             return jnp.concatenate(
                 [cf.canvas_fn_poly(planes, ctx) for cf in cfs], axis=0)
 
-    poly_kernel = None
-    poly_kernel_mask = None
-    fused_kind = None
-    if all(cf.fused_kind is not None for cf in cfs):
-        from .fpga.channels import _fpga_kernel_masks, _fpga_poly_kernel
-        fused_kind = "+".join(cf.fused_kind for cf in cfs)
-        poly_kernel = _fpga_poly_kernel(fused_kind)
-        poly_kernel_mask = _fpga_kernel_masks
-
     composed = ChannelFunction(
         name=name,
         fn=fn,
@@ -234,10 +206,6 @@ def compose_channel_functions(*parts) -> ChannelFunction:
         boundary=boundary,
         canvas_fn=canvas_fn,
         canvas_fn_poly=canvas_fn_poly,
-        poly_kernel=poly_kernel,
-        poly_kernel_mask=poly_kernel_mask,
-        poly_kernel_smooth=all(cf.poly_kernel_smooth for cf in cfs),
-        fused_kind=fused_kind,
     )
     return register_channel_function(composed)
 
@@ -277,8 +245,7 @@ def _project_hist(gx: jax.Array, gy: jax.Array, n_bins: int, full: bool,
         from .ops.exact import project_bins
         chns = jnp.stack(project_bins(gx, gy, plan))
     elif fast:
-        # fast serving mode: plain f32 projections — the XLA mirror of
-        # the fused kernel's fast branch (ops/channels_pallas.py)
+        # fast serving mode: plain f32 projections
         max_theta = 2 * np.pi if full else np.pi
         theta = np.linspace(0, max_theta, n_bins + 1)[:-1]
         chns = jnp.stack([gx * np.float32(np.cos(t))
@@ -316,8 +283,8 @@ def _grad_mag_canvas_fn(canvas: jax.Array, ctx: CanvasCtx, norm: int = 5,
     the norm conv sees reflected *magnitudes*, exactly like the per-level
     reference (/root/reference/waldboost/channels.py:30-37).
 
-    Shifted-adds (VPU) throughout: single-input-channel convolutions are an
-    MXU-hostile shape (measured 8x slower than the elementwise form).
+    Shifted-adds throughout: single-input-channel convolutions are a poor
+    shape for a matrix unit.
     """
     gx, gy = imops.gradients(canvas.astype(jnp.float32))
     mag = jnp.sqrt(gx * gx + gy * gy)
@@ -403,10 +370,11 @@ def _grad_hist_poly_fn(planes: jax.Array, ctx: CanvasCtx, n_bins: int = 4,
     content (bf16 plane dtype or ctx.exact_int).
     """
     exact = ctx.exact_int or planes.dtype == jnp.bfloat16
+    fast = ctx.fast and not exact
     gx, gy = _gradients_poly(planes.astype(jnp.float32),
-                             float_dd=not exact)  # (2,2,H,W) each
+                             float_dd=not exact and not fast)  # (2,2,H,W)
     # (C, 2, 2, H, W) projections
-    value = _project_hist(gx, gy, n_bins, full, bias, exact)
+    value = _project_hist(gx, gy, n_bins, full, bias, exact, fast=fast)
     pooled = (((value[:, 0, 0] + value[:, 1, 0]) + value[:, 0, 1])
               + value[:, 1, 1]) / 4.0
     return pooled
@@ -432,13 +400,6 @@ grad_hist = register_channel_function(
         halo=1,  # gradient radius only
         canvas_fn=_grad_hist_canvas_fn,
         canvas_fn_poly=_grad_hist_poly_fn,
-        poly_kernel=lambda planes, mask, smooth, interpret, content_hw=None,
-        out_grid=None, crop=True, alloc_grid=None, fast=False: __import__(
-            "waldboost_tpu.ops.channels_pallas", fromlist=["x"]
-        ).grad_hist_poly_pallas(planes, mask, smooth, n_bins=4, full=False,
-                                bias=0.0, interpret=interpret,
-                                content_hw=content_hw, out_grid=out_grid,
-                                crop=crop, alloc_grid=alloc_grid, fast=fast),
     )
 )
 
@@ -507,7 +468,7 @@ def _compute_octaves(image: jax.Array, n_octaves: int) -> List[jax.Array]:
     for _ in range(n_octaves - 1):
         prev = octaves[-1]
         if prev.dtype == jnp.uint8 and prev.ndim == 2:
-            # bit-identical MXU form of avg_pool_2 (uint8 is bf16-exact)
+            # bit-identical matmul form of avg_pool_2 (uint8 is bf16-exact)
             octaves.append(imops.avg_pool_2_u8_matmul(prev))
         else:
             octaves.append(imops.avg_pool_2(prev))
@@ -519,9 +480,8 @@ def _compute_octaves_f32(image: jax.Array, n_octaves: int) -> List[jax.Array]:
 
     For uint8 images the values are IDENTICAL to :func:`_compute_octaves`
     (pair sums stay exact in f32, the mod-256 wrap and the truncating /4 are
-    reproduced explicitly) but every u8<->float relayout disappears — the
-    uint8 round-trip after each pool and the per-level upcast together cost
-    more than the octave matmuls themselves.  Non-uint8 images fall back to
+    reproduced explicitly) but every u8<->float conversion disappears (the
+    uint8 round-trip after each pool and the per-level upcast).  Non-uint8 images fall back to
     the generic chain (then upcast), keeping reference dtype semantics.
     """
     if image.dtype != jnp.uint8 or image.ndim != 2:

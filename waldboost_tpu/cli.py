@@ -37,7 +37,7 @@ def detect_main(argv=None):
     """Detect objects in images with one or more models; JSON to stdout."""
     import waldboost_tpu as wb
 
-    p = argparse.ArgumentParser(description="WaldBoost TPU detector")
+    p = argparse.ArgumentParser(description="WaldBoost detector")
     p.add_argument("-m", "--model", action="append", required=True,
                    help="Model file(s) (.pb); repeat for multiple models")
     p.add_argument("files", nargs="+", help="Images to process")
@@ -99,7 +99,7 @@ def train_main(argv=None):
     import waldboost_tpu as wb
     from waldboost_tpu.utils import fake_data_generator
 
-    p = argparse.ArgumentParser(description="WaldBoost TPU trainer")
+    p = argparse.ArgumentParser(description="WaldBoost trainer")
     p.add_argument("-o", "--output", required=True, help="Output model file")
     p.add_argument("--images", default=None, metavar="DIR",
                    help="Training image directory (bbGt-style dataset); "

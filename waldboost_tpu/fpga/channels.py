@@ -9,7 +9,6 @@ assignment semantics of the reference, fpga/channels.py:46-48).
 
 from __future__ import annotations
 
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -121,46 +120,6 @@ def _grad_mag_u1_poly_fn(planes, ctx):
     return _fpga_poly_channels(planes, ctx, [y])
 
 
-@functools.lru_cache(maxsize=32)
-def _fpga_kernel_masks_cached(packed):
-    # cache HOST arrays: a jnp.asarray built inside a trace is a (constant)
-    # tracer, and caching one leaks it across jit scopes
-    import numpy as np
-    bm = packed.stencil_border_mask()
-    H2, W2 = bm.shape
-    ring = np.ascontiguousarray(bm.reshape(H2 // 2, 2, W2 // 2, 2)
-                                .transpose(1, 3, 0, 2).astype(np.float32))
-    interior = packed.smooth_interior_mask().astype(np.float32)
-    return ring, interior
-
-
-def _fpga_kernel_masks(packed):
-    """Masks for the fused FPGA kernel, built once per packed plan:
-    ``(ring, interior)`` — the (2, 2, Hc, Wc) polyphase stencil ring mask
-    (mask[a, b, i, j] = border_mask[2i+a, 2j+b]; numba-stencil zero-border
-    convention) and the (Hc, Wc) smooth interior mask (used by smooth==1
-    only; see model._poly_channels for the XLA-side construction)."""
-    return _fpga_kernel_masks_cached(packed)
-
-
-def _fpga_poly_kernel(kind):
-    """poly_kernel adapter: the fused Pallas FPGA channel kernel
-    (ops.channels_pallas.fpga_poly_pallas).  ``mask`` is the
-    (ring, interior) pair from :func:`_fpga_kernel_masks`."""
-    def k(planes, mask, smooth, interpret, content_hw=None, out_grid=None,
-          crop=True, alloc_grid=None, fast=False):
-        # integer channels have no exactness tax to relax; fast is a no-op
-        ring, interior = mask
-        from ..ops.channels_pallas import fpga_poly_pallas
-        return fpga_poly_pallas(planes, ring, kind=kind, smooth=smooth,
-                                interior_mask=interior if smooth == 1
-                                else None,
-                                interpret=interpret,
-                                content_hw=content_hw, out_grid=out_grid,
-                                crop=crop, alloc_grid=alloc_grid)
-    return k
-
-
 def _grad_hist_4_u1_canvas_fn(canvas, ctx):
     """Canvas mode: one Sobel pass over the packed canvas; the numba-stencil
     zero-border convention is restored by masking each level's 1px ring."""
@@ -188,9 +147,6 @@ grad_hist_4_u1 = register_channel_function(
         boundary="stencil_zero",
         canvas_fn=_grad_hist_4_u1_canvas_fn,
         canvas_fn_poly=_grad_hist_4_u1_poly_fn,
-        poly_kernel=_fpga_poly_kernel("grad_hist_4_u1"),
-        poly_kernel_mask=_fpga_kernel_masks,
-        fused_kind="grad_hist_4_u1",
     )
 )
 
@@ -205,8 +161,5 @@ grad_mag_u1 = register_channel_function(
         boundary="stencil_zero",
         canvas_fn=_grad_mag_u1_canvas_fn,
         canvas_fn_poly=_grad_mag_u1_poly_fn,
-        poly_kernel=_fpga_poly_kernel("grad_mag_u1"),
-        poly_kernel_mask=_fpga_kernel_masks,
-        fused_kind="grad_mag_u1",
     )
 )

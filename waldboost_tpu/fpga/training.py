@@ -9,7 +9,7 @@ arithmetic.
 The split finder itself *is* the framework's standard device histogram
 trainer (``DTree.fit(backend="hist")``) — the reference's FPGA trainer
 (weighted-histogram information gain over integer bins,
-fpga/training.py:15-57) is exactly the algorithm the TPU path uses everywhere,
+fpga/training.py:15-57) is exactly the algorithm the device path uses everywhere,
 with ``integer_thresholds=True`` restoring integer bin edges.
 """
 

@@ -2,7 +2,7 @@
 
 The C++ library (``native/loader.cpp``) provides the host-side input
 pipeline: worker threads decode (image, ground-truth) pairs into a bounded
-queue while the device computes — the TPU framework's replacement for the
+queue while the device computes — this framework's replacement for the
 reference CLI's per-image ``multiprocessing.Pool`` fan-out
 (/root/reference/scripts/waldboost-detect.py:65-67).
 

@@ -1,9 +1,9 @@
 // Native IO runtime for waldboost_tpu: bbGt annotation parsing, PGM/PPM image
 // decoding, and a multi-threaded prefetching dataset loader.
 //
-// This is the host-side input pipeline that keeps the TPU fed: worker threads
-// decode (image, ground-truth) pairs into a bounded ring buffer while the
-// device is busy — the TPU-native replacement for the reference CLI's
+// This is the host-side input pipeline that keeps the device fed: worker
+// threads decode (image, ground-truth) pairs into a bounded ring buffer while
+// the device is busy — the replacement for the reference CLI's
 // multiprocessing.Pool fan-out (/root/reference/scripts/waldboost-detect.py:65-67).
 //
 // Exposed as a plain C ABI consumed from Python via ctypes (no pybind11

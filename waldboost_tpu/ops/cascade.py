@@ -1,6 +1,6 @@
 """Soft-cascade (WaldBoost) evaluation as static-shaped, masked XLA programs.
 
-TPU-first re-expression of the reference's branchy SPRT cascade
+Data-parallel re-expression of the reference's branchy SPRT cascade
 (/root/reference/waldboost/model.py:181-259 and
 /root/reference/waldboost/training.py:73-96):
 
@@ -9,7 +9,8 @@ TPU-first re-expression of the reference's branchy SPRT cascade
   prediction)`` padded to a common node count ``NN`` across stages.
 * Dense sliding-window evaluation exploits that a pixel-comparison feature
   over *all* window origins is just a shifted image slice:
-  ``X[r0 : r0+GU, c0 : c0+GV, ch] <= thr`` — no gathers, pure VPU work.
+  ``X[r0 : r0+GU, c0 : c0+GV, ch] <= thr`` — no gathers, pure
+  elementwise work.
 * SPRT early rejection becomes *masked lockstep* evaluation: every window
   advances through every stage, an ``alive`` mask records rejection.  Because
   rejection is monotone, the surviving set and the survivors' accumulated
@@ -369,8 +370,8 @@ def cascade_survivor_counts(chns: jax.Array, casc: Cascade,
     windows still ALIVE entering stage ``t`` (i.e. evaluated by stage
     ``t``'s weak classifier when that stage is active) and ``n_weak`` is
     the scalar total of weak evaluations (== ``(counts * active).sum()``).
-    A diagnostic pass over the XLA cascade — the serving Pallas kernel
-    stays untouched."""
+    A diagnostic pass over the XLA cascade — the serving kernel stays
+    untouched."""
     if isinstance(meta, int):
         meta = CascadeMeta(depth=meta, n_internal=int(casc.n_nodes))
     C, U, V = chns.shape
@@ -475,8 +476,7 @@ def slice_cascade(casc: Cascade, start: int, stop: int) -> Cascade:
 
 def cascade_suffix_sparse(chns: jax.Array, casc: Cascade, window, meta,
                           idx: jax.Array, scores: jax.Array,
-                          alive: jax.Array, start: int,
-                          content_hw: Optional[Tuple[int, int]] = None
+                          alive: jax.Array, start: int
                           ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """Evaluate stages [start:T) on a compacted set of window origins.
 
@@ -486,12 +486,6 @@ def cascade_suffix_sparse(chns: jax.Array, casc: Cascade, window, meta,
     the static-shape revival of the reference's survivor compaction
     (/root/reference/waldboost/model.py:249-258).
 
-    With ``content_hw`` given, ``chns`` is (C, U_alloc, V_alloc) canvas
-    *allocation* whose top-left (U, V) block is the content (the fused
-    channel/cascade kernels' shared padded layout); ``idx`` indexes the
-    content's (U-m, V-n) window grid while gathers use the allocation
-    strides.
-
     Returns (scores, alive, n_weak_suffix).
     """
     if isinstance(meta, int):
@@ -500,7 +494,7 @@ def cascade_suffix_sparse(chns: jax.Array, casc: Cascade, window, meta,
     complete = getattr(meta, "complete", False)
     C, U, V = chns.shape
     m, n = window
-    gv = max((content_hw[1] if content_hw is not None else V) - n, 0)
+    gv = max(V - n, 0)
     flat = chns.reshape(-1)
     r = idx // gv
     c = idx % gv

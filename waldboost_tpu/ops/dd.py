@@ -4,8 +4,8 @@ The reference's float pipeline computes its resize lerp and its grad_hist
 projection store in FLOAT64 and rounds once to the image dtype
 (/root/reference/waldboost/channels.py:132 ``resize(...).astype(dtype)``;
 :48-50 ``chns[...,i] = gx*c - gy*s`` — a NumPy-2 f64 promotion stored into
-an f32 array).  TPUs have no f64, so this module evaluates those
-expressions in UNEVALUATED f32 PAIRS (hi + lo, "double-float"): every
+an f32 array).  This module evaluates those expressions without f64, in
+UNEVALUATED f32 PAIRS (hi + lo, "double-float"): every
 product of f32 operands is error-free (TwoProd), pair sums carry a
 compensation term, and one final f32 add rounds the pair to the nearest
 f32 — ~2^-47 relative accuracy vs f64's 2^-53, which rounds to the SAME
@@ -13,10 +13,12 @@ f32 except when the f64 chain lands within ~2^-47-relative of an f32
 rounding boundary (measured: zero mismatches on the float golden corpus;
 PARITY.md "Floating-point status").
 
-IMPORTANT (CLAUDE.md): the terminal forces --xla_allow_excess_precision,
-under which f32->bf16->f32 round-trips fold to no-ops.  Everything here
-uses pure f32 multiplies/adds (Veltkamp splitting, no dtype round-trips),
-which XLA:TPU executes as real f32 hardware ops — no folding applies.
+IMPORTANT: under --xla_allow_excess_precision, f32->bf16->f32 round-trips
+fold to no-ops.  Everything here uses pure f32 multiplies/adds (Veltkamp
+splitting, no dtype round-trips), so no such folding applies.  The
+algebra assumes each multiply and add rounds on its own: a compiler that
+contracts ``a*b+c`` into one fused multiply-add, or reassociates, breaks
+it (chip_smoke.py measures the GPU's float channels against the CPU's).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """On-device decision-tree fitting via weighted histograms.
 
-TPU-native replacement for both of the reference's tree trainers:
+Device replacement for both of the reference's tree trainers:
 
 * the sklearn CART wrapper (/root/reference/waldboost/training.py:34-50), and
 * the FPGA scratch trainer's weighted-histogram information-gain split
@@ -10,16 +10,16 @@ TPU-native replacement for both of the reference's tree trainers:
 The tree is grown as a *complete* heap-ordered tree of static depth
 ``max_depth`` (node k's children are 2k+1 / 2k+2), with per-node early
 leaf-termination (``min_samples_leaf``) recorded in the left/right arrays.
-Every quantity is a fixed-shape array op: per-(node, class, feature) weighted
-histograms via segment-sum, cumulative sums along the bin axis, entropy gain,
-and a flat argmax — no data-dependent shapes anywhere, so the whole fit jits
-and shards (the histograms are the only cross-sample reduction, which makes
-multi-chip training a single ``psum`` — see waldboost_tpu.parallel).
+Every quantity is a fixed-shape array op: per-(node, class, feature)
+cumulative weighted histograms as blocked indicator contractions, entropy
+gain, and a flat argmax — no data-dependent shapes anywhere, so the whole fit
+jits (under a mesh it runs replicated on gathered pools, see
+waldboost_tpu.parallel.train_step).
 
 Numerical notes:
 * Binning is selectable; the default is per-feature QUANTILE edges
-  (outlier-robust; AUC == sklearn CART within noise, BASELINE.md
-  "Training-quality parity") with thresholds that are actual data values,
+  (outlier-robust; AUC == sklearn CART within noise, PARITY.md) with
+  thresholds that are actual data values,
   ``bin(x) =`` count of edges ``< x`` so ``x <= threshold <=> bin(x) <= b``
   exactly.  ``binning="uniform"`` keeps the global grid
   ``fmin + (b+1)*width`` with ``bin(x) = clip(ceil((x-fmin)/width)-1, 0,
@@ -43,7 +43,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-__all__ = ["fit_tree_complete", "TreeFitResult", "prune_heap_tree"]
+__all__ = ["fit_tree_complete", "TreeFitResult", "prune_heap_tree",
+           "indicator_histogram"]
 
 
 class TreeFitResult(NamedTuple):
@@ -66,18 +67,51 @@ def _entropy2(p0: jax.Array, p1: jax.Array) -> jax.Array:
 
 
 def hist_mode_from_env() -> str:
-    """Resolve the histogram implementation OUTSIDE any jit: "einsum_bf16"
-    (MXU indicator contraction, bf16 operands — the TPU default),
-    "einsum_f32", or "scatter" (the legacy vmapped segment-sum).  Callers
-    resolve this per call and pass it as the STATIC ``hist_mode`` argument;
-    reading the env inside the traced function would bake the first
-    value into the jit cache and silently ignore later toggles."""
+    """Resolve the histogram implementation OUTSIDE any jit: "einsum" (the
+    indicator contraction, f32 at HIGHEST precision) or "scatter" (the
+    vmapped segment-sum, ``WB_HIST_EINSUM=0``).  Callers resolve this per
+    call and pass it as the STATIC ``hist_mode`` argument; reading the env
+    inside the traced function would bake the first value into the jit
+    cache and silently ignore later toggles."""
     if os.environ.get("WB_HIST_EINSUM", "1") != "1":
         return "scatter"
-    bf16 = os.environ.get("WB_HIST_BF16", "tpu")
-    if bf16 == "1" or (bf16 == "tpu" and jax.default_backend() == "tpu"):
-        return "einsum_bf16"
-    return "einsum_f32"
+    return "einsum"
+
+
+#: rows per indicator block: the (rows, F, B-1) f32 operand of one block is
+#: 512 * 576 * 255 * 4 B = 0.3 GB at a 12x12x4 window and 256 bins
+HIST_CHUNK = 512
+
+
+def indicator_histogram(wc: jax.Array, xf: jax.Array, edges: jax.Array,
+                        chunk: int = HIST_CHUNK) -> jax.Array:
+    """Cumulative class masses ``l[c, f, b] = sum_n wc[c, n] * [x_nf <=
+    edges_bf]`` for (C, N) weights, (N, F) features and (B-1, F) edges.
+
+    One f32 indicator contraction at HIGHEST precision per block of
+    ``chunk`` rows, accumulated by a scan in block order: memory stays
+    bounded at any pool size, and the summation order is fixed by the
+    shapes alone (no scatter atomics)."""
+    C, N = wc.shape
+    F = xf.shape[1]
+    chunk = max(1, min(int(chunk), N))
+    pad = -N % chunk
+    if pad:  # zero-weight rows add exact zeros
+        wc = jnp.pad(wc, ((0, 0), (0, pad)))
+        xf = jnp.pad(xf, ((0, pad), (0, 0)))
+    n_blk = (N + pad) // chunk
+    wcb = wc.reshape(C, n_blk, chunk).transpose(1, 0, 2)  # (n_blk, C, chunk)
+    xb = xf.reshape(n_blk, chunk, F)
+    et = edges.T[None, :, :]                               # (1, F, B-1)
+
+    def block(acc, wx):
+        w, x = wx
+        ind = (x[:, :, None] <= et).astype(jnp.float32)     # (chunk, F, B-1)
+        return acc + jnp.einsum("cn,nfb->cfb", w, ind,
+                                precision=jax.lax.Precision.HIGHEST), None
+
+    acc = jnp.zeros((C, F, edges.shape[0]), jnp.float32)
+    return jax.lax.scan(block, acc, (wcb, xb))[0]
 
 
 @functools.partial(
@@ -106,13 +140,6 @@ def fit_tree_complete(
         # trace-time fallback for direct callers; the package's own call
         # sites resolve outside the jit so env toggles take effect
         hist_mode = hist_mode_from_env()
-    # the einsum path materializes an (N, F, B-1) indicator operand; at
-    # large pool capacities that can exceed sensible HBM budgets where the
-    # scatter path ran in O(N*F) — bound it (static decision from shapes)
-    ind_bytes = N * F * max(B - 1, 1) * (2 if hist_mode == "einsum_bf16"
-                                         else 4)
-    if hist_mode != "scatter" and ind_bytes > 2 * 1024 ** 3:
-        hist_mode = "scatter"
     use_einsum_hist = hist_mode != "scatter"
 
     xf = xf.astype(jnp.float32)
@@ -128,8 +155,7 @@ def fit_tree_complete(
         # (fit/inference consistency, duplicate edges included).
         # Edges come from a deterministic strided SUBSAMPLE of <=2048
         # rows: the (N, F) axis-0 device sort is the cost of this binning
-        # (scripts/exp_r9_qcost.py: 237 ms/stage full vs 44 uniform) and
-        # edge ESTIMATES from a quarter of the pool bin identically for
+        # and edge ESTIMATES from a quarter of the pool bin identically for
         # boosting purposes (LightGBM subsamples the same way).  Stride
         # keeps the choice independent of the mesh (same rows at any
         # device count).
@@ -144,9 +170,8 @@ def fit_tree_complete(
         edges = xs[idx, :]                      # (B-1, F) nondecreasing
         edges = jnp.where(jnp.isfinite(edges), edges, jnp.float32(3e38))
         # bin(x) = count of edges < x (== searchsorted side='left'), as a
-        # fused broadcast compare+reduce: searchsorted's scan method is 8
-        # serial GATHER rounds over 2.4M elements on TPU and measured
-        # ~190 ms/stage of the quantile path's cost (exp_r9_qcost)
+        # fused broadcast compare+reduce instead of searchsorted's serial
+        # gather rounds
         bins = jnp.sum(edges[None, :, :] < xf[:, None, :], axis=1,
                        dtype=jnp.int32)
         edges_cmp = edges  # (B-1, F): bins <= b  <=>  x <= edges[b]
@@ -183,15 +208,19 @@ def fit_tree_complete(
     node = jnp.zeros(N, jnp.int32)  # heap node id per sample
 
     def accumulate_pred(w0_acc, w1_acc, node, d):
-        """Add per-node class masses for nodes at heap level d."""
+        """Add per-node class masses for nodes at heap level d.  A masked
+        reduction, not a scatter-add: a GPU scatter-add sums in the order
+        its atomics land, so the leaf values would vary from run to run."""
         base = 2 ** d - 1
         at_level = jnp.logical_and(node >= base, valid)
-        seg = jnp.where(at_level, node, n_nodes)
-        w0_acc = w0_acc + jax.ops.segment_sum(
-            w_pred * (y == 0) * at_level, seg, num_segments=n_nodes + 1)[:n_nodes]
-        w1_acc = w1_acc + jax.ops.segment_sum(
-            w_pred * (y == 1) * at_level, seg, num_segments=n_nodes + 1)[:n_nodes]
-        return w0_acc, w1_acc
+        hit = jnp.logical_and(at_level[:, None],
+                              node[:, None] == jnp.arange(n_nodes)[None, :])
+
+        def mass(c):  # (n_nodes,) class-c weight per node
+            m = jnp.logical_and(hit, (y == c)[:, None])
+            return jnp.sum(jnp.where(m, w_pred[:, None], 0.0), axis=0)
+
+        return w0_acc + mass(0), w1_acc + mass(1)
 
     for d in range(D):
         n_level = 2 ** d
@@ -203,36 +232,20 @@ def fit_tree_complete(
 
         # -- histograms: (F, n_level, B) cumulative class masses ------------
         if use_einsum_hist:
-            # MXU path: l[c, f, b] = sum_n wc[c, n] * [x_nf <= edge_bf] as
-            # ONE (C, N) @ (N, F*(B-1)) indicator contraction.  The vmapped
-            # per-feature segment-sum alternative lowers to F serial
-            # scatters and measured 38 of the stage program's 40.6 ms on
-            # TPU (scripts/exp_r10_steptrace.py).  The indicator is exact
-            # {0, 1}; the TPU's default bf16 matmul pass rounds only the
-            # weights' mantissa (2^-9 relative), which can perturb split
-            # RANKING near exact ties only — leaf predictions and stage
-            # statistics flow through the exact f32 segment-sums around
-            # this.  WB_HIST_EINSUM=0 restores the scatter path.
+            # matmul path: l[c, f, b] = sum_n wc[c, n] * [x_nf <= edge_bf]
+            # as (C, chunk) @ (chunk, F*(B-1)) indicator contractions (the
+            # vmapped per-feature segment-sum alternative lowers to F
+            # serial scatters).  The indicator is exact {0, 1}; HIGHEST
+            # keeps the weights f32 (a TF32 or bf16 pass would round their
+            # mantissa and could perturb split ranking near ties), so the
+            # sums differ from the scatter path's only in summation order.
+            # WB_HIST_EINSUM=0 selects the scatter path, whose float
+            # scatter-add is order-nondeterministic on the GPU.
             C2 = n_level * 2
             cls = jnp.where(at_level, local * 2 + y, C2)
             wc = jnp.where(cls[None, :] == jnp.arange(C2)[:, None],
                            w_split[None, :], 0.0)            # (C2, N) f32
-            ind = xf[:, :, None] <= edges_cmp.T[None, :, :]  # (N, F, B-1)
-            # bf16 operands (default on TPU) halve the indicator's HBM
-            # traffic — {0,1} is bf16-exact, the accumulator stays f32,
-            # and the TPU's DEFAULT f32 matmul pass rounds operands to
-            # bf16 anyway (so numerics are identical on TPU and only the
-            # traffic differs: 12.1 -> 6.5 ms/step, exp_r10_stepcost.py).
-            # CPU keeps true-f32 operands (bf16 there is emulated AND
-            # would change numerics, since CPU matmuls are real f32).
-            if hist_mode == "einsum_bf16":
-                l_part = jnp.einsum("cn,nfb->cfb",
-                                    wc.astype(jnp.bfloat16),
-                                    ind.astype(jnp.bfloat16),
-                                    preferred_element_type=jnp.float32)
-            else:
-                l_part = jnp.einsum("cn,nfb->cfb", wc,
-                                    ind.astype(jnp.float32))
+            l_part = indicator_histogram(wc, xf, edges_cmp)
             tot_c = jnp.sum(wc, axis=1)                      # exact totals
             l_all = jnp.concatenate(
                 [l_part, jnp.broadcast_to(tot_c[:, None, None],

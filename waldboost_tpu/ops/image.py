@@ -1,9 +1,8 @@
 """Core image ops: separable convolution, pooling, smoothing, bilinear resize.
 
 All functions operate on CHW (``(C, H, W)``) or HW arrays — channel-major is
-the on-device layout of this framework: the last (lane) dimension is image
-width and the sublane dimension is height, which is what the TPU VPU wants for
-row-wise stencils.
+the on-device layout of this framework: the last (contiguous) dimension is
+image width, so row-wise stencils read contiguous memory.
 
 Reference-semantics notes (these quirks are load-bearing for detection parity
 with the CPU reference — see SURVEY.md §7 "hard parts"):
@@ -49,9 +48,8 @@ def _is_integer(dtype) -> bool:
 
 
 def _pool_2(arr: jax.Array, init, op) -> jax.Array:
-    """2x2/stride-2 reduce_window over the last two dims (odd edges dropped).
-    reduce_window is the TPU-optimized pooling path — strided lane slicing is
-    pathologically slow on TPU (measured ~100x slower)."""
+    """2x2/stride-2 reduce_window over the last two dims (odd edges dropped),
+    one fused reduction instead of four strided slices."""
     dims = (1,) * (arr.ndim - 2) + (2, 2)
     return jax.lax.reduce_window(arr, init, op, dims, dims, "VALID")
 
@@ -67,8 +65,7 @@ def avg_pool_2(arr: jax.Array) -> jax.Array:
     ``((TL + BL) + TR) + BR`` (the left-to-right numba expression at
     /root/reference/waldboost/channels.py:55-64) term for term — the order
     is observable for irrational channel values.  Integer inputs sum exactly
-    under any association, so they keep the reduce_window fast path
-    (strided-lane slicing is pathologically slow on TPU).
+    under any association, so they keep the reduce_window path.
     """
     if _is_integer(arr.dtype):
         zero = jnp.zeros((), arr.dtype)
@@ -102,8 +99,8 @@ def _pair_sum_matrix(n: int, left: bool) -> np.ndarray:
 
 
 def avg_pool_2_u8_matmul(arr: jax.Array) -> jax.Array:
-    """uint8 avg_pool_2 as two DEFAULT-precision (bf16) MXU matmuls —
-    bit-identical to :func:`avg_pool_2` and ~8x faster on TPU.
+    """uint8 avg_pool_2 as two DEFAULT-precision matmuls — bit-identical to
+    :func:`avg_pool_2`.
 
     uint8 values (<= 255) are exact in bf16 and pair sums are exact in the
     f32 accumulator; the mod-256 after each pass reproduces the reference's
@@ -130,7 +127,7 @@ def avg_pool_2_u8values_f32(arr: jax.Array) -> jax.Array:
     Value-identical to ``avg_pool_2`` on the uint8 original: pair sums are
     exact in f32/bf16 (<= 510), the reference's uint8 wraparound is the
     explicit mod-256 select, and the truncating /4 is a floor (values are
-    non-negative).  Keeping the chain f32/bf16 drops two u8 relayouts per
+    non-negative).  Keeping the chain f32/bf16 drops two u8 conversions per
     octave plus the downstream upcast.
     """
     assert arr.ndim == 2
@@ -166,8 +163,8 @@ def smooth_3x3(arr: jax.Array) -> jax.Array:
     The nine taps are summed in the stencil expression's left-to-right f32
     order (row-major, /root/reference/waldboost/channels.py:80-83) — the
     association is observable for irrational channel values.  Integer inputs
-    compute exactly (values fit f32) and truncate-cast back.  Shifted adds
-    (VPU): single-channel convs are an MXU-hostile shape.
+    compute exactly (values fit f32) and truncate-cast back.  Shifted adds:
+    single-channel convs are a poor shape for a matrix unit.
     """
     dtype = arr.dtype
     work = arr.astype(jnp.float32)
@@ -229,8 +226,8 @@ def separable_filter_reflect(x: jax.Array, k0: np.ndarray, k1: np.ndarray | None
 
 def conv2d_exact(x: jax.Array, kern: np.ndarray) -> jax.Array:
     """(H, W) or (B, H, W) input x (O, 3, 3) kernels -> (O, H-2, W-2) /
-    (B, O, H-2, W-2) VALID correlation at HIGHEST precision (the TPU default
-    computes f32 convs in bf16)."""
+    (B, O, H-2, W-2) VALID correlation at HIGHEST precision (a default f32
+    conv may run in bf16 or TF32 passes)."""
     squeeze = x.ndim == 2
     if squeeze:
         x = x[None]

@@ -1,8 +1,8 @@
 """On-device non-maximum suppression and top-k detection extraction.
 
 The reference leaves NMS to the external bbx package on the host
-(/root/reference/waldboost/testing.py:46); BASELINE.json's north star asks
-for NMS and pyramid-coordinate mapping on device to avoid host round-trips.
+(the reference's waldboost/testing.py:46); here NMS and the
+pyramid-coordinate mapping run on device to avoid host round-trips.
 
 Greedy score-descending NMS is inherently sequential, but for a fixed-K
 candidate set it vectorizes as a K-step ``fori_loop`` over an IoU matrix —
@@ -48,9 +48,8 @@ def nms_device(rects: jax.Array, scores: jax.Array, valid: jax.Array,
 
     Selection loop, not a K-step scan: each iteration argmax-picks the best
     remaining box and suppresses its overlaps, so the trip count is
-    ``#kept + 1`` (typically ~10 per image) instead of K.  Sequential
-    while-loop steps with tiny bodies are bubble-dominated on TPU — the
-    fixed K=256-iteration formulation cost ~2 ms of wall per batch program.
+    ``#kept + 1`` (typically ~10 per image) instead of K: sequential
+    loop steps with tiny bodies cost latency, not work.
     argmax breaks score ties by lowest index, exactly the host's stable
     descending sort order (boxes.non_max_suppression).
     """
@@ -97,9 +96,9 @@ def extract_detections_approx(hs: jax.Array, alive: jax.Array,
                               k: int = 256
                               ) -> Tuple[jax.Array, jax.Array, jax.Array,
                                          jax.Array]:
-    """Fixed-capacity survivor extraction via ``lax.approx_max_k`` — the
-    TPU-native partial-reduction top-k (~4x faster than the sort-based
-    ``lax.top_k`` at canvas size).
+    """Fixed-capacity survivor extraction via ``lax.approx_max_k`` (a
+    partial-reduction top-k where the backend has one; exact ``top_k``
+    elsewhere).
 
     approx_max_k may miss survivors (recall < 1), so exactness is *checked*:
     ``count`` is the true survivor total and is set to -1 when the extracted
@@ -140,7 +139,7 @@ def extract_detections_masked(masked: jax.Array, count: jax.Array,
                               k: int = 256, with_coords: bool = False
                               ) -> Tuple[jax.Array, ...]:
     """Extraction from a kernel-emitted masked map (hs where alive, -inf
-    elsewhere; see ops.cascade_static.cascade_masked_grid_static).
+    elsewhere; see ops.cascade_kernel.cascade_masked).
 
     ``masked`` is the UNCROPPED aligned (GUp, GVp) map, ``count`` the exact
     survivor total (computed in-kernel), ``level_id`` the (GUp, GVp) padded
@@ -187,9 +186,8 @@ def extract_detections_rowwise(hs: jax.Array, alive: jax.Array,
     """Fixed-capacity survivor extraction, hierarchical: per-row top-``k_row``
     then global top-``k`` over the (GU * k_row) candidates.
 
-    A flat ``top_k`` over the whole window grid costs ~3 ms at VGA canvas
-    size on TPU; batched row-wise top-k over the 628-wide rows plus a global
-    top-k over ~17k candidates is ~10x cheaper.  Exact (returns ALL
+    Batched row-wise top-k plus a global top-k over the row candidates
+    replaces one flat ``top_k`` over the whole window grid.  Exact (returns ALL
     survivors) when no grid row holds more than ``k_row`` survivors and the
     total count fits ``k`` — the returned ``count`` lets callers detect
     overflow and fall back (monotone with Model.detect's two-phase pattern).

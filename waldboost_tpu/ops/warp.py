@@ -1,11 +1,11 @@
 """Resize-as-matmul and static halo-reflection permutations.
 
-TPU-first building blocks of the canvas-first pyramid pipeline:
+Building blocks of the canvas-first pyramid pipeline:
 
 * :func:`resize_matrices` — bilinear resize expressed as two small dense
-  matrices ``out = R_h @ img @ R_w.T`` (2 nonzeros per row).  On TPU this
-  rides the MXU instead of the VPU-hostile gather path, and it is exactly the
-  same arithmetic as lerp (each output row/col is a 2-term convex blend).
+  matrices ``out = R_h @ img @ R_w.T`` (2 nonzeros per row): matrix
+  products instead of gathers, and exactly the same arithmetic as lerp
+  (each output row/col is a 2-term convex blend).
 * :func:`reflection_permutation` — a static index map that fills designated
   halo bands of a canvas with symmetric reflections of the adjacent interior,
   leaving everything else in place.  Applying it is a single gather; it is
@@ -201,8 +201,8 @@ def reflect_halos(canvas: jax.Array,
     """Fill each region's halo band with the symmetric reflection of its
     content using static slices + flips (two separable passes, corners
     included).  Semantically identical to applying
-    :func:`reflection_permutation` but ~100x faster on TPU, where a
-    full-canvas gather runs at scalar speed.  Regions must be disjoint
+    :func:`reflection_permutation` without a full-canvas gather.  Regions
+    must be disjoint
     including their halos (guaranteed by the halo-aware packer) and satisfy
     ``halo <= h, w``.  Operates on the last two dims.
     """

@@ -91,10 +91,9 @@ class PackedPyramidPlan:
         margin = halo_c + (1 if halo > 0 else 0)
         # polyphase assembly alignment (shrink=2): choose the top margin so
         # every shelf band starts at an 8-aligned PLANE row (band row =
-        # y - halo_c + PAD_R), and round shelf heights to 8 — the plane
-        # assembly's row-axis concats then run at full DMA speed instead of
-        # sublane-relayout speed.  Tile counts absorb the extra rows (the
-        # width search accounts for them).
+        # y - halo_c), and round shelf heights to 8 — the plane assembly's
+        # row-axis concats stay aligned.  Tile counts absorb the extra rows
+        # (the width search accounts for them).
         align_y = 8 if shrink == 2 else 1
         margin_y = margin
         if align_y > 1:
@@ -147,8 +146,7 @@ class PackedPyramidPlan:
             # forcing a full-height slot, recovering the height a tall
             # shelf wastes above its short members.  Slot starts stay
             # align_y-aligned (slot heights are rounded), which the plane
-            # assembly and the fused shelf kernel's 8-aligned stores rely
-            # on at shrink 2.
+            # assembly relies on at shrink 2.
             placed: Dict[int, PackedLevel] = {}
             shelves = []  # dict(y, bh, cx, band, cols=[dict(x, w, cy, id)])
             bands: List[Tuple[int, int]] = []

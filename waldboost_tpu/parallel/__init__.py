@@ -1,10 +1,9 @@
-"""Multi-chip scaling: device meshes, sharded detection and training.
+"""Multi-device scaling: device meshes, sharded detection and training.
 
 - :mod:`.mesh` — 1-D data-parallel mesh helpers (jax.sharding).
 - :mod:`.detect` — batched detection over image batches, sharded over the mesh.
 - :mod:`.train_step` — the fully on-device boosting stage (histogram tree fit
-  + SPRT threshold) whose cross-chip reductions XLA lowers to psum/all-gather
-  over ICI.
+  + SPRT threshold) whose cross-device exchange XLA lowers to all-gathers.
 """
 
 from . import detect, mesh, train_step  # noqa: F401

@@ -2,7 +2,7 @@
 serving with per-size-exact semantics.
 
 A jit program is shape-specialized, so naive serving recompiles per novel
-camera resolution (2 s-6 min on TPU).  The bucket program here is compiled
+camera resolution.  The bucket program here is compiled
 ONCE per coarse (H, W) bucket from the BUCKET's packed pyramid plan (static
 placements, static shapes), while everything the real image size determines
 enters as RUNTIME operands:
@@ -135,8 +135,8 @@ def bucket_geometry(bucket_hw: Tuple[int, int], real_hw: Tuple[int, int],
                    pl.x * s + 1:pl.x * s + iw - 1] = True
         regions.append((pl.y * s, pl.x * s, ih, iw, packed.halo))
 
-    from ..ops.cascade_static import cascade_grid
-    TU, TV, gi, gj, _, _ = cascade_grid((Hc, Wc), (m, n))
+    from ..ops.cascade_kernel import cascade_grid
+    TU, TV, gi, gj = cascade_grid((Hc, Wc), (m, n))
     lid_pad = np.full((gi * TU, gj * TV), -1, np.int32)
     lid_pad[:gu, :gv] = level_id
 
@@ -226,10 +226,9 @@ def make_bucket_detector_boxes(model: Model, bucket_hw: Tuple[int, int],
     zero extra host round-trips); ``scores`` become the verified scores,
     NMS (if any) ranks by them, and a sixth output carries the raw cascade
     scores."""
-    from ..ops.cascade_static import (cascade_masked_grid_static,
-                                      static_cascade_from_model)
+    from ..ops.cascade_kernel import cascade_masked
     from ..ops.nms import extract_detections_masked, nms_device
-    from .detect import _serving_block
+    from .detect import _serving_fast
 
     m, n, _ = model.shape
     shrink, n_per_oct, smooth, cf = _normalize_opts(model.channel_opts)
@@ -241,31 +240,23 @@ def make_bucket_detector_boxes(model: Model, bucket_hw: Tuple[int, int],
         return None
     halo = packed.halo if (cf.boundary == "reflect" and cf.halo > 0) else 0
     n_oct = max(pl.level.octave for pl in packed.levels) + 1
-    sc = static_cascade_from_model(model)
-    interpret = jax.default_backend() != "tpu"
+    casc, meta = model._get_cascade()
     offs = jnp.asarray(np.array([(pl.y, pl.x) for pl in packed.levels],
                                 np.int32))
     wnd = jnp.asarray([m, n], jnp.int32)
-    block = _serving_block()
-
-    # serving-mode knobs resolve at BUILD time (trace-time env reads bake
-    # the first value in — CLAUDE.md landmine)
-    from .detect import _serving_and_tree, _serving_fast, _serving_fast_scores
+    # the serving mode resolves at BUILD time (a trace-time env read bakes
+    # the first value in)
     fast = _serving_fast()
-    and_tree = _serving_and_tree()
-    fast_scores = _serving_fast_scores()
 
     def body(images, g):
         is_int = jnp.issubdtype(images.dtype, jnp.integer)
         cvs = jax.vmap(lambda im: _canvas_rt_one(
             im, g, packed, cf, shrink, smooth, halo, n_oct, is_int,
             fast=fast))(images)
-        masked, n_weak, count = cascade_masked_grid_static(
-            cvs, sc, g["valid"], (m, n), interpret=interpret,
-            with_n_weak=with_n_weak, preshift=True, preshift_lazy=True,
-            preshift_min_uses=1, block=block,
-            and_tree=and_tree, fast=fast,
-            fast_scores=fast_scores)
+        if fast:
+            cvs = cvs.astype(jnp.bfloat16)
+        masked, n_weak, count = cascade_masked(
+            cvs, casc, meta, g["valid"], (m, n), with_n_weak=with_n_weak)
 
         def extract_one(mk, cnt):
             return extract_detections_masked(

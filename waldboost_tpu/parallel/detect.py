@@ -2,14 +2,13 @@
 
 Builds a jitted program that runs the packed-pyramid cascade over a *batch*
 of same-sized images, optionally sharded across a device mesh (data
-parallelism over images — the TPU-native replacement for the reference CLI's
+parallelism over images — the device replacement for the reference CLI's
 ``multiprocessing.Pool(6)`` fan-out,
 /root/reference/scripts/waldboost-detect.py:65-67).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import jax
@@ -19,52 +18,25 @@ import numpy as np
 from ..channels import _normalize_opts
 from ..model import (Model, _channel_canvas_batch, _packed_plan_cached)
 from ..ops.cascade import cascade_response_grid
-from .mesh import data_sharding, replicated
+from .mesh import data_sharding
 
 __all__ = ["make_batched_detector", "make_batched_detector_boxes",
            "detect_batch"]
 
 
-def _serving_block():
-    """Early-exit block schedule of the serving cascade kernel: an int or a
-    comma-separated schedule (coarse early / fine late), env-overridable."""
-    import os
-    v = os.environ.get("WB_CASCADE_BLOCK", "16")
-    parts = tuple(int(x) for x in v.split(","))
-    return parts[0] if len(parts) == 1 else parts
-
-
-def _serving_and_tree() -> bool:
-    """Dead-window encoding of the serving cascade kernel: "andtree"
-    (default since round 4: deferred per-block AND-tree rejection — same
-    survivor set and scores bitwise, theta compares off the per-stage
-    critical path; traced 71.4 vs 72.7 us/img on the trained flagship) or
-    "inf" (the round-3 -inf latch)."""
-    import os
-    return os.environ.get("WB_CASC_ENC", "andtree") == "andtree"
-
-
 def _serving_fast() -> bool:
-    """Opt-in fast serving mode (``WB_SERVING_MODE=fast``): bf16 channel
-    canvas with the plain f32 projection chains (no dd-projection exactness
-    tax) + the bf16 cascade stage chain.  NOT bit-exact vs the reference —
-    the default ("exact") keeps the zero-mismatch contract; the fast mode's
-    measured deviation/throughput trade lives in BASELINE.md.  Read OUTSIDE
-    jit (trace-time env landmine, CLAUDE.md) and passed as static args."""
+    """Opt-in fast serving mode (``WB_SERVING_MODE=fast``): plain f32
+    channel chains for float content (no double-float exactness tax) and a
+    bf16 canvas into the cascade kernel.  NOT bit-exact vs the reference —
+    the default ("exact") keeps the zero-mismatch contract.  Read OUTSIDE
+    jit (a trace-time env read bakes the first value in) and passed on as
+    static configuration."""
     import os
     return os.environ.get("WB_SERVING_MODE", "exact") == "fast"
 
 
-def _serving_fast_scores() -> str:
-    """hs accumulation dtype in fast mode: "bf16" (default, max throughput)
-    or "f32" (bf16 routing, f32 scores)."""
-    import os
-    return os.environ.get("WB_FAST_SCORES", "bf16")
-
-
 def make_batched_detector(model: Model, image_shape: Tuple[int, int],
-                          mesh=None, donate: bool = False,
-                          n_stages_cap: Optional[int] = None,
+                          mesh=None, n_stages_cap: Optional[int] = None,
                           _parts: bool = False, _raw: bool = False,
                           _shared=None):
     """Compile a batched detector for ``model`` on images of ``image_shape``.
@@ -75,294 +47,63 @@ def make_batched_detector(model: Model, image_shape: Tuple[int, int],
     the mesh size).
 
     ``n_stages_cap`` evaluates only the first stages (the two-phase prefix).
-    With ``_parts=True`` returns ``(canvas_jit, cascade_jit, packed,
-    content_hw)`` instead — ``content_hw`` is (Hc, Wc) when the canvas
-    program emits the fused kernels' padded allocation (content top-left),
-    else None.
+    With ``_parts=True`` returns ``(canvas_jit, cascade_jit, packed)``
+    instead.  ``_raw=True`` returns the unjitted building blocks
+    ``(canvas_b, cascade_b, cascade_masked_b, packed)`` for single-program
+    composition; ``cascade_masked_b`` is None on the XLA backend.
 
-    ``_shared=(packed, need_hw)`` builds against a pre-planned SHARED canvas
-    (heterogeneous multi-model serving): ``packed`` replaces the model's own
-    plan and ``need_hw`` is the joint minimum canvas allocation — the
-    elementwise max of every model's :func:`ops.cascade_static.cascade_grid`
-    need, so each model's kernel halo fetch stays in bounds (the kernels
-    tolerate over-allocation).
+    ``_shared=packed`` builds against a pre-planned SHARED canvas
+    (heterogeneous multi-model serving, or a truncated scale plan).
     """
+    from ..model import _resolve_cascade_backend
+
     m, n, _ = model.shape
     shrink, n_per_oct, smooth, cf = _normalize_opts(model.channel_opts)
     if _shared is not None:
-        packed, shared_need = _shared
+        packed = _shared
     else:
         packed = _packed_plan_cached(image_shape[0], image_shape[1], shrink,
                                      n_per_oct, (m, n), halo=cf.halo)
-        shared_need = None
     valid = jnp.asarray(packed.valid_mask((m, n)))
-    casc, depth = model._get_cascade()
+    casc, meta = model._get_cascade()
     if n_stages_cap is not None:
         from ..ops.cascade import slice_cascade
         casc = slice_cascade(casc, 0, min(n_stages_cap, casc.n_stages))
+    # serving knobs resolve at BUILD time, not inside the traced closures
+    fast = _serving_fast()
 
     def canvas_b(images):
-        return _channel_canvas_batch(images, shrink, n_per_oct, smooth, cf,
-                                     packed)
+        cvs = _channel_canvas_batch(images, shrink, n_per_oct, smooth, cf,
+                                    packed, fast=fast)
+        return cvs.astype(jnp.bfloat16) if fast else cvs
 
-    def cascade_one(canvas):
-        return cascade_response_grid(canvas, casc, (m, n), depth,
-                                     init_alive=valid)
-
-    from ..model import _resolve_cascade_backend, _use_channel_kernel
-    backend = _resolve_cascade_backend(serving=True)
-    fused = bool(backend == "static" and shrink == 2
-                 and cf.canvas_fn_poly is not None
-                 and cf.poly_kernel is not None and _use_channel_kernel()
-                 and (smooth == 0 or cf.poly_kernel_smooth)
-                 and packed.levels)
-    content_hw_out = None
-    if fused:
-        # geometry-coupled kernels: the channel kernel emits a canvas already
-        # sized for the cascade kernel's halo fetch — zero pad/copy between.
-        # (An HBM->HBM DMA assembly of the level blocks was tried and
-        # reverted: Mosaic requires 8/128-aligned slice shapes on tiled
-        # memrefs, which arbitrary level geometry cannot satisfy.)
-        from ..model import _poly_planes
-        from ..ops.cascade_static import (cascade_grid,
-                                          cascade_response_grid_static,
-                                          static_cascade_from_model)
-        from ..ops.channels_pallas import channel_grid, plane_pad_geometry
-        sc = static_cascade_from_model(model)
-        interpret = jax.default_backend() != "tpu"
-        Hc, Wc = packed.canvas_h, packed.canvas_w
-        TUc, TVc, gi2, gj2, HU, HV = cascade_grid((Hc, Wc), (m, n))
-        need = (gi2 * TUc + HU, gj2 * TVc + HV)
-        if shared_need is not None:
-            need = (max(need[0], shared_need[0]),
-                    max(need[1], shared_need[1]))
-        TU, TV, _, _ = channel_grid(Hc, Wc)
-        out_grid = (-(-need[0] // TU), -(-need[1] // TV))
-        # planes stay content-grid sized: the channel kernel's pad tiles
-        # (out_grid enlargement for the cascade's halo fetch) skip their DMA
-        geom = plane_pad_geometry(Hc, Wc)
-        # grad_hist takes the smooth interior mask; the FPGA kernels take
-        # the polyphase stencil ring mask (poly_kernel_mask)
-        if cf.poly_kernel_mask is not None:
-            interior = cf.poly_kernel_mask(packed)
-        else:
-            interior = jnp.asarray(packed.smooth_interior_mask()) \
-                if smooth == 1 else None
-        # one-time device-resident selector matrices (see _poly_mats_cached:
-        # closure-captured arrays would lower as MLIR literals, so they ride
-        # the jit boundary as explicit arguments; only the static spec is
-        # closed over)
-        from ..model import _poly_fused_cached, _poly_mats_cached
-        halo_m = packed.halo if (cf.boundary == "reflect" and cf.halo > 0) \
-            else 0
-        # fused shelf pass-2 kernel (ops.plane_pallas): pass-2 + lerp +
-        # assembly in VMEM — the 4-corner G tensors and the concat/pad
-        # passes never touch HBM.  Falls back to the XLA mats path when
-        # disabled or when a shelf would exceed the VMEM budget.
-        import os as _os
-        fspec = None
-        if _os.environ.get("WB_PLANE_FUSED", "1") == "1" \
-                and _use_channel_kernel():
-            fmats, fspec = _poly_fused_cached(packed, halo_m,
-                                              tuple(image_shape))
-            if fspec["vmem_bytes"] > 14 * 2 ** 20 or not fspec["shelves"]:
-                fspec = None
-        # serving knobs resolve at BUILD time (not inside the traced
-        # closures — CLAUDE.md trace-time-env landmine)
-        fast = _serving_fast()
-        block_f = _serving_block()
-        and_tree_f = _serving_and_tree()
-        fast_scores_f = _serving_fast_scores()
-        from ..ops.channels_pallas import channel_grid as _chgrid
-        TUk, TVk, _, _ = _chgrid(Hc, Wc)
-
-        def canvas_float_b(images):
-            # float images, EXACT mode: the fused channel kernel's
-            # double-float chains (dd prefilters + projections) blow
-            # Mosaic's scoped-VMEM stack (measured 24.13M/16M at VGA), so
-            # floats take the SAME XLA canvas chain Model.detect uses
-            # (dd-exact; float serving is the rare case) padded to the
-            # cascade kernel's halo allocation
-            from ..model import _channel_canvas_fast
-            cvs = jax.vmap(lambda im: _channel_canvas_fast(
-                im, shrink, smooth, cf, packed))(images)
-            cvs = cvs.astype(jnp.float32)
-            H_alloc = max(out_grid[0] * TUk, Hc)
-            W_alloc = max(out_grid[1] * TVk, Wc)
-            return jnp.pad(cvs, ((0, 0), (0, 0),
-                                 (0, H_alloc - cvs.shape[2]),
-                                 (0, W_alloc - cvs.shape[3])))
-
-        from ..polyphase import _fast_float_bf16
-        fast_bf16 = _fast_float_bf16()  # build-time, like WB_SERVING_MODE
-
-        def canvas_float_fast_b(images):
-            # float images, FAST mode: plain f32 planes (exact HIGHEST
-            # one-hot selection, plain f32 lerp — no dd; WB_FAST_FLOAT=
-            # bf16 quantizes the content to bf16 planes instead), then
-            # the SAME fused kernel configuration the uint8 fast path
-            # runs (plain f32 chains, bf16 canvas).  Exact float serving
-            # measured 208 vs 1173 MP/s (BASELINE.md float-path record)
-            # — this is the product knob that closes that gap when the
-            # dd contract is waived.
-            planes = jax.vmap(
-                lambda im: _poly_planes(im, cf, packed, geom=geom,
-                                        fast=True,
-                                        fast_bf16=fast_bf16))(images)
-            return cf.poly_kernel(planes, interior, smooth, interpret,
-                                  content_hw=(Hc, Wc),
-                                  alloc_grid=out_grid, crop=False,
-                                  fast=True)
-
-        if fspec is not None:
-            from ..model import _poly_planes_fused
-
-            def canvas_b(images, mats_=None):
-                if not jnp.issubdtype(images.dtype, jnp.integer):
-                    return (canvas_float_fast_b(images) if fast
-                            else canvas_float_b(images))
-                if mats_ is not None:
-                    planes = _poly_planes_fused(images, mats_, fspec,
-                                                interpret=interpret)
-                else:
-                    # mats_=None callers (bare shard_map) need the
-                    # in-program build
-                    planes = jax.vmap(
-                        lambda im: _poly_planes(im, cf, packed,
-                                                geom=geom))(images)
-                return cf.poly_kernel(planes, interior, smooth, interpret,
-                                      content_hw=(Hc, Wc),
-                                      alloc_grid=out_grid, crop=False,
-                                      fast=fast)
-
-            canvas_b.mats = fmats
-        else:
-            mats, spec = _poly_mats_cached(packed, halo_m,
-                                           tuple(image_shape))
-
-            def canvas_b(images, mats_=None):
-                if not jnp.issubdtype(images.dtype, jnp.integer):
-                    return (canvas_float_fast_b(images) if fast
-                            else canvas_float_b(images))
-                planes = jax.vmap(
-                    lambda im: _poly_planes(im, cf, packed, geom=geom,
-                                            mats=mats_, spec=spec))(images)
-                # alloc_grid (not out_grid): the cascade's halo region is
-                # only ever read for statically-dead windows, so it stays
-                # uninitialized instead of paying zero-fill pad tiles
-                return cf.poly_kernel(planes, interior, smooth, interpret,
-                                      content_hw=(Hc, Wc),
-                                      alloc_grid=out_grid, crop=False,
-                                      fast=fast)
-
-            canvas_b.mats = mats
-
-        content_hw_out = (Hc, Wc)
+    if _resolve_cascade_backend() == "triton":
+        from ..ops.cascade_kernel import cascade_dense, cascade_masked
 
         def cascade_b(cvs):
-            return cascade_response_grid_static(cvs, sc, valid, (m, n),
-                                                interpret=interpret,
-                                                content_hw=(Hc, Wc),
-                                                n_stages_cap=n_stages_cap)
+            return cascade_dense(cvs, casc, meta, valid, (m, n))
 
         def cascade_masked_b(cvs, with_n_weak=True):
-            from ..ops.cascade_static import cascade_masked_grid_static
-            return cascade_masked_grid_static(cvs, sc, valid, (m, n),
-                                              interpret=interpret,
-                                              content_hw=(Hc, Wc),
-                                              n_stages_cap=n_stages_cap,
-                                              with_n_weak=with_n_weak,
-                                              preshift=True,
-                                              preshift_lazy=True,
-                                              # materialize even single-use
-                                              # pairs: direct misaligned
-                                              # reads in the unrolled stage
-                                              # loop measured 6% slower
-                                              # than one slab copy
-                                              # (scripts/exp_r5_pshift.py)
-                                              preshift_min_uses=1,
-                                              block=block_f,
-                                              and_tree=and_tree_f,
-                                              fast=fast,
-                                              fast_scores=fast_scores_f)
-    elif backend == "static":
-        # cascade-specialized kernel with the batch as a grid dimension:
-        # one launch evaluates the whole (per-shard) batch
-        from ..ops.cascade_static import (cascade_response_grid_static,
-                                          static_cascade_from_model)
-        sc = static_cascade_from_model(model)
-        interpret = jax.default_backend() != "tpu"
-        # serving knobs resolve at BUILD time (not inside the traced
-        # closure — CLAUDE.md trace-time-env landmine)
-        fast_st = _serving_fast()
-        and_tree_st = _serving_and_tree()
-        fast_scores_st = _serving_fast_scores()
-        block_st = _serving_block()
-
-        def cascade_b(cvs):
-            return cascade_response_grid_static(cvs, sc, valid, (m, n),
-                                                interpret=interpret,
-                                                n_stages_cap=n_stages_cap)
-
-        def cascade_masked_b(cvs, with_n_weak=True):
-            from ..ops.cascade_static import cascade_masked_grid_static
-            return cascade_masked_grid_static(cvs, sc, valid, (m, n),
-                                              interpret=interpret,
-                                              n_stages_cap=n_stages_cap,
-                                              with_n_weak=with_n_weak,
-                                              preshift=True,
-                                              preshift_lazy=True,
-                                              # materialize even single-use
-                                              # pairs: direct misaligned
-                                              # reads in the unrolled stage
-                                              # loop measured 6% slower
-                                              # than one slab copy
-                                              # (scripts/exp_r5_pshift.py)
-                                              preshift_min_uses=1,
-                                              block=block_st,
-                                              and_tree=and_tree_st,
-                                              fast=fast_st,
-                                              fast_scores=fast_scores_st)
-    elif backend == "pallas":
-        # the generic fused kernel cannot be vmapped (unblocked ANY-space
-        # operand); loop per-image kernel calls inside one jitted program
-        from ..ops.cascade_pallas import cascade_response_grid_pallas
-        interpret = jax.default_backend() != "tpu"
-
-        def cascade_b(cvs):
-            outs = [cascade_response_grid_pallas(cvs[i], casc, valid, (m, n),
-                                                 depth, interpret=interpret)
-                    for i in range(cvs.shape[0])]
-            hs = jnp.stack([o[0] for o in outs])
-            alive = jnp.stack([o[1] for o in outs])
-            nweak = jnp.stack([o[2] for o in outs])
-            return hs, alive, nweak
-        cascade_masked_b = None
+            return cascade_masked(cvs, casc, meta, valid, (m, n),
+                                  with_n_weak=with_n_weak)
     else:
+        def cascade_one(canvas):
+            return cascade_response_grid(canvas, casc, (m, n), meta,
+                                         init_alive=valid)
+
         cascade_b = jax.vmap(cascade_one)
         cascade_masked_b = None
 
     if _raw:
-        # unjitted building blocks for single-program composition
-        # (make_batched_detector_boxes fuses canvas+cascade+extraction+NMS
-        # into ONE program — measured faster than the split, and the split's
-        # "pathological scheduling" only afflicted the XLA-evaluator path)
-        return canvas_b, cascade_b, cascade_masked_b, packed, content_hw_out
+        return canvas_b, cascade_b, cascade_masked_b, packed
 
-    # two XLA programs (canvas, cascade): composing them into one triggers
-    # pathological scheduling on TPU — see model._canvas_cascade_jit
-    mats = getattr(canvas_b, "mats", None)
     if mesh is None:
-        if mats is not None:
-            _cjit = jax.jit(canvas_b)
-            canvas_jit = lambda images: _cjit(images, mats)
-        else:
-            canvas_jit = jax.jit(canvas_b)
+        canvas_jit = jax.jit(canvas_b)
         cascade_jit = jax.jit(cascade_b)
     else:
-        # keep the fast kernel under the mesh: shard_map runs the per-shard
-        # kernel on every chip's local batch slice (data parallelism over
-        # images; no collectives needed — detection is independent per image)
+        # shard_map runs the per-shard programs on every device's local
+        # batch slice (data parallelism over images; no collectives —
+        # detection is independent per image)
         from jax import shard_map
         from jax.sharding import PartitionSpec as P
 
@@ -389,7 +130,7 @@ def make_batched_detector(model: Model, image_shape: Tuple[int, int],
                               out_shardings=out_sh)
 
     if _parts:
-        return canvas_jit, cascade_jit, packed, content_hw_out
+        return canvas_jit, cascade_jit, packed
 
     def fn(images):
         return cascade_jit(canvas_jit(images))
@@ -435,12 +176,8 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
                            extract_detections_rowwise, nms_device)
 
     m, n, _ = model.shape
-    # MEASURED (v5e): sparse suffix evaluation is gather-bound and TPU
-    # gathers run at scalar speed (~9 ms/image at capacity 4096 vs 0.4 ms
-    # for the full dense kernel), and exact compaction needs
-    # approx_max_k(recall=1.0) which lowers to a sort (~0.6 ms/image).  At
-    # uniform survivor density the dense masked lockstep wins outright, so
-    # two-phase is opt-in (two_phase=True), never "auto".
+    # two-phase is opt-in (two_phase=True): the dense masked kernel is the
+    # default; the sparse suffix's cost on this device is not measured yet
     use_tp = two_phase is True
     if use_tp:
         return _make_two_phase_detector_boxes(
@@ -455,8 +192,9 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
         if built is not None:
             return built
 
-    assert n_scales is None, \
-        "n_scales requires the static-kernel serving path"
+    if n_scales is not None:
+        raise ValueError("n_scales requires the kernel serving path "
+                         "(extractor='approx', cascade backend 'triton')")
     base_fn, packed = make_batched_detector(model, image_shape, mesh=mesh)
     level_id_map, inv_scales = packed.level_maps((m, n))
     offsets = np.array([(pl.y, pl.x) for pl in packed.levels], np.int32) \
@@ -494,14 +232,14 @@ def _make_masked_detector_boxes(model: Model, image_shape: Tuple[int, int],
                                 nms_iou: Optional[float] = None,
                                 with_n_weak: bool = True,
                                 n_scales: Optional[int] = None):
-    """ONE-program batched detection for the static-cascade backends.
+    """ONE-program batched detection on the cascade kernel.
 
     Composes canvas -> masked cascade kernel -> approx_max_k extraction ->
     NMS into a single jit (shard_map'd under a mesh).  The cascade kernel
-    emits the aligned uncropped masked map + exact survivor counts, so the
-    extraction needs no alive map, no jnp.where pass, and no unaligned-crop
-    relayout.  Returns None when the static kernel path is unavailable
-    (callers fall back to the split-program generic path).
+    emits the tile-padded masked map + exact survivor counts, so the
+    extraction needs no alive map and no jnp.where pass.  Returns None when
+    the kernel path is not selected (callers fall back to the split-program
+    XLA path).
     """
     from ..ops.nms import extract_detections_masked, nms_device
 
@@ -512,7 +250,7 @@ def _make_masked_detector_boxes(model: Model, image_shape: Tuple[int, int],
         # config-1 "single scale" workload at n_scales=1; the reference
         # itself controls scale count via channel_opts['n_per_oct'],
         # /root/reference/waldboost/channels.py:111-131): a truncated
-        # packed plan rides the same fused channel + cascade kernels
+        # packed plan rides the same canvas chain + cascade kernel
         from ..channels import pyramid_plan
         from ..model import _normalize_opts
         from ..packing import PackedPyramidPlan
@@ -521,16 +259,16 @@ def _make_masked_detector_boxes(model: Model, image_shape: Tuple[int, int],
                             n_per_oct_)[:n_scales]
         packed_t = PackedPyramidPlan.build(plan, (m, n), halo=cf_.halo,
                                            shrink=shrink_)
-        shared = (packed_t, (0, 0))
+        shared = packed_t
     parts = make_batched_detector(model, image_shape, _raw=True,
                                   _shared=shared)
-    canvas_b, _, cascade_masked_b, packed, content_hw = parts
+    canvas_b, _, cascade_masked_b, packed = parts
     if cascade_masked_b is None:
         return None
 
-    from ..ops.cascade_static import cascade_grid
+    from ..ops.cascade_kernel import cascade_grid
     Hc, Wc = packed.canvas_h, packed.canvas_w
-    TU, TV, gi, gj, _, _ = cascade_grid((Hc, Wc), (m, n))
+    TU, TV, gi, gj = cascade_grid((Hc, Wc), (m, n))
     GUp, GVp = gi * TU, gj * TV
     level_id_map, inv_scales = packed.level_maps((m, n))
     gu, gv = level_id_map.shape
@@ -553,45 +291,27 @@ def _make_masked_detector_boxes(model: Model, image_shape: Tuple[int, int],
             valid = jnp.logical_and(valid, keep)
         return rects, scores, valid, count
 
-    mats = getattr(canvas_b, "mats", None)
-
-    def body(images, mats_):
-        cvs = canvas_b(images, mats_) if mats is not None \
-            else canvas_b(images)
-        masked, n_weak, count = cascade_masked_b(cvs,
+    def body(images):
+        masked, n_weak, count = cascade_masked_b(canvas_b(images),
                                                  with_n_weak=with_n_weak)
         rects, scores, valid, count = jax.vmap(extract_one)(masked, count)
         return rects, scores, valid, count, n_weak
 
     if mesh is None:
-        jbody = jax.jit(body)
-
-        def fn(images):
-            return jbody(images, mats)
-
-        # the unjitted body (+ its trailing args), so callers can compose
-        # more device work into the SAME program before jitting (bench.py
-        # folds its forcing reduce in — one dispatch per batch, not two)
-        fn.body = body
-        fn.body_args = (mats,)
-        return fn, packed
+        return jax.jit(body), packed
 
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from .mesh import DATA_AXIS, replicated
+    from .mesh import DATA_AXIS
 
     sharded = shard_map(
         body, mesh=mesh,
-        # P() is a pytree prefix over the mats tuple: selector matrices are
-        # replicated on every chip
-        in_specs=(P(DATA_AXIS, None, None), P()),
+        in_specs=(P(DATA_AXIS, None, None),),
         out_specs=(P(DATA_AXIS, None, None), P(DATA_AXIS, None),
                    P(DATA_AXIS, None), P(DATA_AXIS), P(DATA_AXIS)),
         check_vma=False)
-    in_sh = data_sharding(mesh, 3)
-    jbody = jax.jit(sharded, in_shardings=(in_sh, replicated(mesh)))
-    return (lambda images: jbody(images, mats)), packed
+    return jax.jit(sharded, in_shardings=(data_sharding(mesh, 3),)), packed
 
 
 def make_multi_detector_boxes(models, image_shape: Tuple[int, int],
@@ -602,7 +322,7 @@ def make_multi_detector_boxes(models, image_shape: Tuple[int, int],
     """K-model batched detection over ONE shared channel canvas.
 
     The canvas program appears exactly once in the compiled program; each
-    model's cascade-specialized kernel scans the same canvas, and every
+    model's cascade kernel scans the same canvas, and every
     model's survivors are extracted to its own k-slot box set (scores
     pre-scaled by ``response_scale`` on device, per-model NMS on device
     when ``nms_iou`` is set).  Returns ``fn(images) -> (rects, scores,
@@ -613,12 +333,11 @@ def make_multi_detector_boxes(models, image_shape: Tuple[int, int],
     Device analog of /root/reference/waldboost/__init__.py:75-130 (one
     pyramid, K models); models must share channel options.  Window shapes
     may DIFFER: the shared canvas is planned from the elementwise-min
-    window (allocated to the joint kernel-halo need) and each model's
-    cascade kernel scans it with its own window grid, validity mask, and
-    level maps.
+    window and each model's cascade kernel scans it with its own window
+    grid, validity mask, and level maps.
     """
     from ..channels import _normalize_opts
-    from ..ops.cascade_static import cascade_grid
+    from ..ops.cascade_kernel import cascade_grid
     from ..ops.nms import extract_detections_masked, nms_device
 
     model0 = models[0]
@@ -637,21 +356,14 @@ def make_multi_detector_boxes(models, image_shape: Tuple[int, int],
     packed = _packed_plan_cached(image_shape[0], image_shape[1], shrink,
                                  n_per_oct, (m_min, n_min), halo=cf.halo)
     Hc, Wc = packed.canvas_h, packed.canvas_w
-    need_hw = (0, 0)
-    for mm in models:
-        TUk, TVk, gik, gjk, HUk, HVk = cascade_grid(
-            (Hc, Wc), (mm.shape[0], mm.shape[1]))
-        need_hw = (max(need_hw[0], gik * TUk + HUk),
-                   max(need_hw[1], gjk * TVk + HVk))
-
     parts = [make_batched_detector(mm, image_shape, _raw=True,
-                                   _shared=(packed, need_hw))
+                                   _shared=packed)
              for mm in models]
-    canvas_b, _, _, _, content_hw = parts[0]
+    canvas_b = parts[0][0]
     cascades = [p[2] for p in parts]
     if any(c is None for c in cascades):
-        raise RuntimeError("multi-model serving needs the static-cascade "
-                           "kernel path (set_cascade_backend('static'))")
+        raise RuntimeError("multi-model serving needs the cascade kernel "
+                           "path (set_cascade_backend('triton'))")
 
     offsets = np.array([(pl.y, pl.x) for pl in packed.levels], np.int32) \
         if packed.levels else np.zeros((1, 2), np.int32)
@@ -662,7 +374,7 @@ def make_multi_detector_boxes(models, image_shape: Tuple[int, int],
     lids, wnds = [], []
     for mm in models:
         m, n, _ = mm.shape
-        TU, TV, gi, gj, _, _ = cascade_grid((Hc, Wc), (m, n))
+        TU, TV, gi, gj = cascade_grid((Hc, Wc), (m, n))
         level_id_map, _ = packed.level_maps((m, n))
         gu, gv = level_id_map.shape
         lid_pad = np.full((gi * TU, gj * TV), -1, np.int32)
@@ -680,11 +392,8 @@ def make_multi_detector_boxes(models, image_shape: Tuple[int, int],
             valid = jnp.logical_and(valid, keep)
         return rects, scores, valid, count
 
-    mats = getattr(canvas_b, "mats", None)
-
-    def body(images, mats_):
-        cvs = canvas_b(images, mats_) if mats is not None \
-            else canvas_b(images)  # the ONE canvas computation
+    def body(images):
+        cvs = canvas_b(images)  # the ONE canvas computation
         outs = []
         nw_total = None
         for kix, cascade_kx in enumerate(cascades):
@@ -705,24 +414,21 @@ def make_multi_detector_boxes(models, image_shape: Tuple[int, int],
         return rects, scores, valid, label, count, nw_total
 
     if mesh is None:
-        jbody = jax.jit(body)
-        return (lambda images: jbody(images, mats)), packed
+        return jax.jit(body), packed
 
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from .mesh import DATA_AXIS, replicated
+    from .mesh import DATA_AXIS
 
     sharded = shard_map(
         body, mesh=mesh,
-        in_specs=(P(DATA_AXIS, None, None), P()),
+        in_specs=(P(DATA_AXIS, None, None),),
         out_specs=(P(DATA_AXIS, None, None), P(DATA_AXIS, None),
                    P(DATA_AXIS, None), P(DATA_AXIS, None),
                    P(DATA_AXIS, None), P(DATA_AXIS)),
         check_vma=False)
-    in_sh = data_sharding(mesh, 3)
-    jbody = jax.jit(sharded, in_shardings=(in_sh, replicated(mesh)))
-    return (lambda images: jbody(images, mats)), packed
+    return jax.jit(sharded, in_shardings=(data_sharding(mesh, 3),)), packed
 
 
 def _make_two_phase_detector_boxes(model: Model, image_shape, mesh=None,
@@ -735,7 +441,7 @@ def _make_two_phase_detector_boxes(model: Model, image_shape, mesh=None,
     from ..ops.nms import nms_device
 
     m, n, _ = model.shape
-    canvas_jit, prefix_jit, packed, content_hw = make_batched_detector(
+    canvas_jit, prefix_jit, packed = make_batched_detector(
         model, image_shape, mesh=mesh, n_stages_cap=prefix, _parts=True)
     casc, meta = model._get_cascade()
     level_id_map, inv_scales = packed.level_maps((m, n))
@@ -761,8 +467,7 @@ def _make_two_phase_detector_boxes(model: Model, image_shape, mesh=None,
         complete = jnp.logical_and(count1 <= cap,
                                    jnp.sum(aliveK, dtype=jnp.int32) == count1)
         H, aliveS, nw2 = cascade_suffix_sparse(
-            cvs, casc, (m, n), meta, idx, scoresK, aliveK, prefix,
-            content_hw=content_hw)
+            cvs, casc, (m, n), meta, idx, scoresK, aliveK, prefix)
         n_surv = jnp.sum(aliveS, dtype=jnp.int32)
         scores, sel = jax.lax.top_k(jnp.where(aliveS, H, -jnp.inf), k_out)
         valid = jnp.isfinite(scores)
@@ -833,19 +538,14 @@ def make_tile_sharded_detector(model: Model, image_shape: Tuple[int, int],
     valid_pad[:gu] = valid_np
     valid_dev = jnp.asarray(valid_pad)
 
-    backend = _resolve_cascade_backend(serving=True)
-    if backend == "static":
-        from ..ops.cascade_static import (cascade_response_grid_static,
-                                          static_cascade_from_model)
-        sc = static_cascade_from_model(model)
-        interpret = jax.default_backend() != "tpu"
+    casc, meta = model._get_cascade()
+    if _resolve_cascade_backend() == "triton":
+        from ..ops.cascade_kernel import cascade_dense
 
         def band_eval(canvas_band, valid_band):
-            return cascade_response_grid_static(
-                canvas_band, sc, valid_band, (m, n), interpret=interpret)
+            return tuple(x[0] for x in cascade_dense(
+                canvas_band[None], casc, meta, valid_band, (m, n)))
     else:
-        casc, meta = model._get_cascade()
-
         def band_eval(canvas_band, valid_band):
             return cascade_response_grid(canvas_band, casc, (m, n), meta,
                                          init_alive=valid_band)

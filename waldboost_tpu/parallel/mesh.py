@@ -1,7 +1,7 @@
 """Device-mesh helpers for multi-chip scaling.
 
 Detection is embarrassingly parallel over images, so the canonical mesh here
-is 1-D data parallelism over ICI; training shards the sample pool the same
+is 1-D data parallelism over the device interconnect; training shards the sample pool the same
 way (the only cross-chip reductions a WaldBoost step needs are the global
 histogram / weight-sum / threshold statistics — see SURVEY.md §2's
 parallelism inventory).  Shardings are expressed with jax.sharding + jit so

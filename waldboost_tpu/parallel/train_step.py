@@ -3,12 +3,12 @@
 One boosting stage — exp-loss weights, histogram tree fit, score update, SPRT
 threshold, stage statistics — as a single jitted program over fixed-capacity
 (padded + masked) sample pools.  Under a mesh, the pools are sharded over the
-data axis at rest; the stage gathers them with ONE all-gather over ICI and
+data axis at rest; the stage gathers them with ONE all-gather and
 computes the statistics replicated (a WaldBoost pool is a few MB, and
 replicated f32 reductions make the trained model bitwise mesh-invariant —
 partial-sum psums round differently per mesh size), then writes the updated
 scores/validity back sharded.  (SURVEY.md §2/§5 parallel-inventory: jax
-collectives over ICI replace the absent NCCL layer of the reference.)
+collectives replace the reference's single-host multiprocessing.)
 """
 
 from __future__ import annotations
@@ -72,6 +72,7 @@ def _stage_body(x0, H0, v0, x1, H1, v1, P0, P1, theta_in, use_sprt,
     near-tie feature argmaxes).  A WaldBoost pool is a few MB — the
     all-gather is noise next to mining — while pools stay sharded at rest
     and the score/prune updates still write back sharded."""
+    gather = lambda a: a
     if mesh is not None:
         rep = replicated(mesh)
         gather = lambda a: jax.lax.with_sharding_constraint(a, rep)
@@ -110,8 +111,11 @@ def _stage_body(x0, H0, v0, x1, H1, v1, P0, P1, theta_in, use_sprt,
         pred = jnp.round(q * pred) / q
     tree = tree._replace(pred=pred)
 
-    H0n = H0 + tree_predict_device(tree, x0, max_depth)
-    H1n = H1 + tree_predict_device(tree, x1, max_depth)
+    # the updated scores leave the step sharded; pinning them replicated
+    # here keeps the threshold fit and the stage sums below from being
+    # partitioned into mesh-dependent partial sums
+    H0n = gather(H0 + tree_predict_device(tree, x0, max_depth))
+    H1n = gather(H1 + tree_predict_device(tree, x1, max_depth))
 
     theta_est = fit_rejection_threshold_device(H0n, H1n, P0, P1, alpha,
                                                v0=v0, v1=v1)
@@ -139,9 +143,7 @@ def make_train_step(alpha: float = 0.1, max_depth: int = 2, n_bins: int = 256,
 
     Memoized on its parameters: successive ``train_sharded`` calls (e.g.
     the segmented bench loop, or train/evaluate/continue workflows) share
-    ONE jit instance, so only the first segment ever traces/compiles —
-    a fresh instance per segment measured ~12 s at its first dispatch
-    (scripts/exp_r10_benchdp.py).
+    ONE jit instance, so only the first segment ever traces/compiles.
     """
     from ..ops.fit import hist_mode_from_env
     return _make_train_step_cached(alpha, max_depth, n_bins,

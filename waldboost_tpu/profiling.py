@@ -3,7 +3,7 @@
 The reference's only perf instrument is the ``Model.eval_cost`` running
 average (/root/reference/waldboost/model.py:69-89), which this framework
 keeps as a first-class on-device counter (see ops.cascade's ``n_weak``).
-This module adds the TPU-side tracing the reference lacks: jax.profiler
+This module adds the device-side tracing the reference lacks: jax.profiler
 trace annotations around pipeline phases and a simple wall-clock/throughput
 meter for benchmarking loops.
 """

@@ -1,12 +1,10 @@
-"""Generated protobuf bindings for model serialization.
+"""Model serialization: a pure-Python proto3 codec for ``model.proto``.
 
-``model_pb2.py`` is generated from ``model.proto`` (protoc 3.21) and checked
-in so no build step is required.  Regenerate with:
-
-    protoc --python_out=waldboost_tpu/proto --proto_path=waldboost_tpu/proto \
-        waldboost_tpu/proto/model.proto
+:mod:`.codec` reads and writes the same bytes as protoc-generated bindings
+of ``model.proto`` (and of the reference's schema, which has the same
+messages and field numbers), without a protobuf runtime.
 """
 
-from . import model_pb2
+from . import codec
 
-__all__ = ["model_pb2"]
+__all__ = ["codec"]

@@ -25,9 +25,8 @@ def ulp_distance(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Element-wise ULP distance between two float32 arrays: 0 = bitwise
     equal, 1 = adjacent representables.  Negative floats are remapped onto
     the monotone integer line so sign crossings count correctly.  Shared by
-    the float-image golden test and the PARITY ULP-bound measurement
-    (scripts/exp_r10_float_ulp.py) so the published bound and the asserted
-    bound use ONE definition."""
+    the float-image golden test, PARITY.md's ULP bound and chip_smoke.py's
+    GPU-vs-CPU channel comparison, so every bound uses ONE definition."""
     ai = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
     bi = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
     ai = np.where(ai < 0, np.int64(-0x80000000) - ai, ai)
